@@ -1,0 +1,218 @@
+"""PerformanceNet building blocks in PyTorch (eval-only in this slice).
+
+Counterpart of the JAX package's ``models/layers.py`` (reference
+model/model.py:14-174). The JAX model is channel-last (B, T, C); these
+blocks run channel-first (B, C, T), PyTorch's convolution layout, and the
+model converts at its public edge. Parameter names and layouts are the
+reference's (Conv1d weight (out, in, k), ConvTranspose1d weight
+(in, out, k), Linear weight (out, in)), so a reference ``state_dict`` loads
+with ``strict=True``.
+
+``compute_dtype`` follows the JAX model: conv and linear inputs, weights and
+biases are cast to it (bfloat16 by default) while parameters stay float32;
+InstanceNorm statistics are float32 and its output returns to the compute
+dtype. Convolutions and linears are library calls (``torch.nn.functional``),
+as the JAX model leaves them to XLA outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm over the time axis of (B, C, T), float32 statistics
+    (torch.nn.InstanceNorm1d with affine=False, track_running_stats=False)."""
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=slope)
+
+
+def crop_and_concat(upsampled: torch.Tensor, bypass: torch.Tensor) -> torch.Tensor:
+    """Channel-concat after reconciling time lengths (reference model.py:71-78).
+
+    Centre-crops (or pads) ``bypass`` to the upsampled length with the
+    reference's floor-division / negative-F.pad arithmetic, then right-crops
+    any leftover odd frame. Channel-first: time is the last axis.
+    """
+    t_up = upsampled.shape[-1]
+    t_by = bypass.shape[-1]
+    c = (t_by - t_up) // 2  # python floor division, as in the reference
+    if c > 0:
+        bypass = bypass[..., c : t_by - c]
+    elif c < 0:
+        bypass = F.pad(bypass, (-c, -c))
+    t_now = bypass.shape[-1]
+    if t_now > t_up:
+        bypass = bypass[..., :t_up]
+    elif t_now < t_up:  # cannot occur with floor division; keep the guard
+        bypass = F.pad(bypass, (0, t_up - t_now))
+    return torch.cat([upsampled, bypass], dim=1)
+
+
+def _dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown compute_dtype {name!r}")
+    return dt
+
+
+class _Affine(nn.Module):
+    """A weight of ``shape`` plus a bias of ``n_bias``, float32, uninitialised
+    (the model initialises every parameter from one generator)."""
+
+    def __init__(self, shape, n_bias: int, compute_dtype: str, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.empty(n_bias, dtype=torch.float32, device=device))
+        self.compute_dtype = _dtype(compute_dtype)
+
+    def _cast(self, x):
+        dt = self.compute_dtype
+        return x.to(dt), self.weight.to(dt), self.bias.to(dt)
+
+
+class Conv1x3(_Affine):
+    """k=3, s=1, p=1 conv (reference conv1x3, model.py:14-22)."""
+
+    def __init__(self, in_ch: int, out_ch: int, compute_dtype: str = "bfloat16", device=None):
+        super().__init__((out_ch, in_ch, 3), out_ch, compute_dtype, device)
+
+    def forward(self, x):
+        x, w, b = self._cast(x)
+        return F.conv1d(x, w, b, padding=1)
+
+
+class ConvTranspose1dTorch(_Affine):
+    """torch.nn.ConvTranspose1d(kernel, stride, padding): output length
+    (T-1)*stride - 2*padding + kernel (the decoder's 53->108->216->431->860)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 2,
+                 padding: int = 1, compute_dtype: str = "bfloat16", device=None):
+        super().__init__((in_ch, out_ch, kernel), out_ch, compute_dtype, device)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        x, w, b = self._cast(x)
+        return F.conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding)
+
+
+class Linear(_Affine):
+    """Linear over the channel axis of a channel-first (B, C, T) tensor."""
+
+    def __init__(self, in_f: int, out_f: int, compute_dtype: str = "bfloat16", device=None):
+        super().__init__((out_f, in_f), out_f, compute_dtype, device)
+
+    def forward(self, x):
+        x, w, b = self._cast(x)
+        return torch.matmul(w, x) + b[:, None]
+
+
+class DownConv(nn.Module):
+    """(conv1x3 -> IN -> LeakyReLU) x2, optional MaxPool(2) (model.py:34-53).
+    Returns (pooled, before_pool) for the U-Net skips."""
+
+    def __init__(self, in_ch: int, out_ch: int, pooling: bool = True,
+                 compute_dtype: str = "bfloat16", slope: float = 0.01,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        self.conv1 = Conv1x3(in_ch, out_ch, compute_dtype, device)
+        self.conv2 = Conv1x3(out_ch, out_ch, compute_dtype, device)
+        self.pooling, self.slope, self.eps = pooling, slope, eps
+
+    def forward(self, x):
+        x = leaky_relu(instance_norm(self.conv1(x), self.eps), self.slope)
+        x = leaky_relu(instance_norm(self.conv2(x), self.eps), self.slope)
+        before_pool = x
+        if self.pooling:
+            x = F.max_pool1d(x, kernel_size=2, stride=2)
+        return x, before_pool
+
+
+class UpConv(nn.Module):
+    """Decoder block (model.py:56-90): transposed-conv upsample -> IN ->
+    LReLU, skip fuse (crop_and_concat + conv), optional onset-condition fuse
+    + conv."""
+
+    def __init__(self, in_ch: int, out_ch: int, skip_ch: int, cond_ch: int = 0,
+                 upconv_kernel: int = 2, compute_dtype: str = "bfloat16",
+                 slope: float = 0.01, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.upconv = ConvTranspose1dTorch(in_ch, out_ch, upconv_kernel, 2, 1,
+                                           compute_dtype, device)
+        self.conv1 = Conv1x3(out_ch + skip_ch, out_ch, compute_dtype, device)
+        self.conv2 = Conv1x3(out_ch + cond_ch, out_ch, compute_dtype, device)
+        self.has_condition = cond_ch > 0
+        self.slope, self.eps = slope, eps
+
+    def forward(self, skip, dec, cond=None):
+        x = leaky_relu(instance_norm(self.upconv(dec), self.eps), self.slope)
+        x = crop_and_concat(x, skip)
+        x = leaky_relu(instance_norm(self.conv1(x), self.eps), self.slope)
+        if self.has_condition:
+            x = crop_and_concat(x, cond)
+        x = self.conv2(x)
+        return leaky_relu(instance_norm(x, self.eps), self.slope)
+
+
+class DenseConcat(nn.Module):
+    """Latent fusion of the MIDI/audio branches (model.py:93-108): channel
+    concat [audio, midi], then two Linear+ReLU (+Dropout(0.2) in training)."""
+
+    def __init__(self, in_ch: int, intermediate: int, features: int,
+                 dropout_rate: float = 0.2, compute_dtype: str = "bfloat16",
+                 device=None):
+        super().__init__()
+        self.fc1 = Linear(in_ch, intermediate, compute_dtype, device)
+        self.fc2 = Linear(intermediate, features, compute_dtype, device)
+        self.dropout_rate = dropout_rate
+        self.compute_dtype = _dtype(compute_dtype)
+
+    def forward(self, midi_embed, audio_embed, deterministic: bool = True):
+        if not deterministic and self.dropout_rate > 0.0:
+            raise NotImplementedError(
+                "dropout (deterministic=False) arrives with the training slice")
+        dt = self.compute_dtype
+        x = torch.cat([audio_embed.to(dt), midi_embed.to(dt)], dim=1)
+        x = F.relu(self.fc1(x))
+        return F.relu(self.fc2(x))
+
+
+class MBRBlock(nn.Module):
+    """Multi-band residual block (model.py:143-174).
+
+    compat_noop=False: the intended residual ``x + concat(band_branches)``,
+    each band conv-IN-LReLU-conv-IN. compat_noop=True: the reference's
+    literal behaviour, ``2*x`` (its residual add is discarded, model.py:172),
+    with no parameters, as in the JAX model.
+    """
+
+    def __init__(self, channels: int, num_bands: int, compat_noop: bool = False,
+                 compute_dtype: str = "bfloat16", slope: float = 0.01,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        if channels % num_bands != 0:
+            raise ValueError(f"{channels} channels do not split into {num_bands} bands")
+        self.num_bands, self.compat_noop = num_bands, compat_noop
+        self.slope, self.eps = slope, eps
+        if not compat_noop:
+            band = channels // num_bands
+            self.conv_list1 = nn.ModuleList(
+                [Conv1x3(band, band, compute_dtype, device) for _ in range(num_bands)])
+            self.conv_list2 = nn.ModuleList(
+                [Conv1x3(band, band, compute_dtype, device) for _ in range(num_bands)])
+
+    def forward(self, x):
+        if self.compat_noop:
+            return x * 2.0
+        bands = torch.chunk(x, self.num_bands, dim=1)
+        outs = []
+        for band, c1, c2 in zip(bands, self.conv_list1, self.conv_list2):
+            t = leaky_relu(instance_norm(c1(band), self.eps), self.slope)
+            outs.append(instance_norm(c2(t), self.eps))
+        return x + torch.cat(outs, dim=1)

@@ -6,6 +6,8 @@ setup(
     version="0.1.0",
     description="TPU-native piano timbre style-transfer framework (JAX/XLA/Pallas)",
     packages=find_packages(include=["ml_music_style_transfer_tpu*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"ml_music_style_transfer_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "scipy", "h5py"],
     entry_points={
