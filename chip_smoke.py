@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -9,30 +10,49 @@ scipy and the standard library. Phases, each reported on its own lines:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for every float32 comparison below;
   2. build: compile the CUDA kernels from ``ml_music_style_transfer_tpu_torch/csrc``;
-  3. kernels vs plain: the Griffin-Lim glue kernels against their plain
-     PyTorch versions on the card at nf = 100 and at the 30 s serving shape
-     nf = 5160 (max abs error <= 1e-4), rfft(glue(irfft S)) against
+  3. glue kernels vs plain: the Griffin-Lim glue kernels against their
+     plain PyTorch versions on the card at nf = 100 and at the 30 s serving
+     shape nf = 5160 (max abs error <= 1e-4), rfft(glue(irfft S)) against
      stft(istft S) (<= 1e-3), and each kernel's time beside its plain
      version's and its memory bound;
-  4. main path: a full-width PerformanceNet (731,945,857 params, bfloat16
-     compute, seeded random weights) serves three requests (10 s, 30 s and
-     30 s of MIDI, timbre clips of 6 s, 30 s and 27.5 s) through
+  4. serving path: a full-width PerformanceNet (731,945,857 params,
+     bfloat16 compute, seeded random weights) serves three requests (10 s,
+     30 s and 30 s of MIDI, timbre clips of 6 s, 30 s and 27.5 s) through
      ``AudioSynthesizer.inference`` with 300 Griffin-Lim iterations; each
-     waveform is checked and each request must launch each glue kernel 300
-     times. Then Griffin-Lim through the kernels is held against the plain
-     path on the first request's spectrogram;
+     waveform is checked, each request must launch each glue kernel 300
+     times and the dropout kernel never. Then Griffin-Lim through the
+     kernels is held against the plain path on the first request's
+     spectrogram;
   5. profile: the Griffin-Lim loop's wall time per iteration, device time
      by kernel (torch.profiler) and device busy share on the warm
-     request's spectrogram.
+     request's spectrogram;
+  6. dropout kernel vs plain: at the ten shapes the five DenseConcats give
+     it at batch 16 in bfloat16, and one in float32, ``dropout_mask`` and
+     ``dropout_apply`` must be bit-equal to their plain versions; keep
+     fraction, seed/call-index determinism, the extreme rates' clamped
+     thresholds and the backward of ``DropoutFunction``; the kernel's time
+     at (16, 384, 860) beside its plain version's, ``F.dropout``'s and its
+     bound;
+  7. training path: ``Trainer`` at full width and batch 16 on seeded
+     synthetic chunks (``ChunkDataset.from_arrays``): ``train_epoch`` (2
+     steps), 10 steps on one repeated batch (finite, falling loss) and
+     ``evaluate`` over a padded last batch; exactly 10 forward and 10
+     backward dropout launches per step and none in eval; the warm step's
+     time, frames/s, peak memory and a profile of the top device
+     operations.
 
-The line before the last is the kernels' JSON record, the last line
+The line before the last is the card's name and power limit, the one
+before it the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
 without a card the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import gc
+import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -42,7 +62,11 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+# int32 ALU: 64 lanes per SM against float32's 128, one op per lane-cycle
+# against an FMA's two, so a quarter of the float32 FLOP rate
+INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
 FULL_WIDTH_PARAMS = 731_945_857
+SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz boost clock
 N_ITER = 300
 REQUESTS = ((10.0, 6.0), (30.0, 30.0), (30.0, 27.5))  # (MIDI s, timbre WAV s)
 GL_BUCKET = 430  # Griffin-Lim runs over the MIDI's frames rounded up to half a chunk
@@ -66,13 +90,20 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, n: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``n`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``n`` back-to-back calls (CUDA events).
+
+    The card first spins for about 50 ms (``torch.cuda._sleep``) while the
+    host queues all ``n`` calls behind it, so the events time the kernels
+    back to back and not the host's rate of launching them (a Python
+    wrapper takes tens of microseconds per call, longer than a small
+    kernel runs)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -81,8 +112,9 @@ def cuda_ms(fn, n: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS_PER_S
+def bound_ms(n_bytes: float, n_flops: float, n_int_ops: float = 0.0) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / F32_FLOPS_PER_S + n_int_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -184,7 +216,7 @@ def render(notes, duration: float, sr: int = 44100) -> np.ndarray:
     return (0.5 * y / np.abs(y).max()).astype(np.float32)
 
 
-def main_path(torch, glue, tmp):
+def main_path(torch, glue, dk, tmp):
     from ml_music_style_transfer_tpu_torch.config import ModelConfig
     from ml_music_style_transfer_tpu_torch.data.audio_io import read_wav, write_wav
     from ml_music_style_transfer_tpu_torch.infer import AudioSynthesizer
@@ -237,7 +269,8 @@ def main_path(torch, glue, tmp):
         write_wav(wav, render(notes, wav_s))
         inputs.append((midi, wav))
 
-    glue.reset_launches()  # counts from here on are the main path's
+    glue.reset_launches()  # counts from here on are the serving path's
+    dk.reset_launches()
     first = None
     for i, ((midi, wav), (midi_s, wav_s)) in enumerate(zip(inputs, REQUESTS)):
         before = dict(glue.LAUNCHES)
@@ -267,9 +300,10 @@ def main_path(torch, glue, tmp):
             first = synth
         last = synth
     launches = dict(glue.LAUNCHES)
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the serving path: {launches} dropout {dict(dk.LAUNCHES)}")
     for k, v in launches.items():
-        check(v == N_ITER * len(REQUESTS), f"{k}: {v} launches on the main path")
+        check(v == N_ITER * len(REQUESTS), f"{k}: {v} launches on the serving path")
+    check(not any(dk.LAUNCHES.values()), "serving launched the dropout kernel")
 
     # Griffin-Lim through the kernels vs the plain path, same phase, on the
     # first request's predicted spectrogram (not counted above)
@@ -332,6 +366,213 @@ def profile_phase(torch, synth, n_iter: int = 100) -> None:
         print(f"profile: {us:8.1f} us/iter {100 * us / device_us:5.1f} % {key[:100]}")
 
 
+# ---- phase 6: dropout kernel vs plain --------------------------------------
+
+DROPOUT_RATE = 0.2
+DROPOUT_SEED = 0x9E3779B97F4A7C15
+# Least int32 work per element: a Philox4x32-10 call per 4 elements is 10
+# rounds of two 32x32->64 multiplies (one IMAD.WIDE each) and two
+# three-input XORs (one LOP3 each); the key bumps are per-launch constants;
+# then a compare and a select per element
+PHILOX_INT_OPS_PER_ELEMENT = 10 * (2 + 2) / 4 + 2
+TIMED_SHAPE = (16, 384, 860)  # the largest dropout call of a batch-16 step
+
+
+def dense_concat_shapes(batch: int = 16) -> list[tuple[int, int, int]]:
+    """The (B, C, T) tensors the five DenseConcats hand to dropout at full
+    width: hidden (1.5 C) and output (C) at C = 4096..256, T = 53..860."""
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig
+    from ml_music_style_transfer_tpu_torch.models import temporal_ladder
+
+    cfg = ModelConfig()
+    t_enc = temporal_ladder()["encoder"]
+    shapes = []
+    for i in range(cfg.depth):
+        c, t = cfg.midi_channel_plan[-(i + 1)], t_enc[-(i + 1)]
+        shapes += [(batch, int(c * 1.5), t), (batch, c, t)]
+    return shapes
+
+
+def dropout_phase(torch, dk):
+    import torch.nn.functional as F
+
+    seed, rate = DROPOUT_SEED, DROPOUT_RATE
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(s, torch.bfloat16) for s in dense_concat_shapes()] + [(TIMED_SHAPE, torch.float32)]
+    err = 0.0
+    for ci, (shape, dtype) in enumerate(cases):
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        m = dk.dropout_mask(seed, ci, shape, rate, dtype)
+        y = dk.dropout_apply(x, seed, ci, rate)
+        m_ref = dk.dropout_mask_reference(seed, ci, shape, rate, dtype, "cuda")
+        y_ref = dk.dropout_apply_reference(x, seed, ci, rate)
+        torch.cuda.synchronize()
+        e = max(float((m.float() - m_ref.float()).abs().max()),
+                float((y.float() - y_ref.float()).abs().max()))
+        err = max(err, e)
+        same = torch.equal(m, m_ref) and torch.equal(y, y_ref)
+        print(f"dropout {tuple(shape)} {str(dtype)[6:]} call {ci}: bit-equal={same} "
+              f"max_abs_err={e:.3e} kept={float((m != 0).float().mean()):.5f}")
+        check(same, f"dropout kernel differs from its plain version at {shape} {dtype}")
+
+    m = dk.dropout_mask(seed, 0, TIMED_SHAPE, rate, torch.bfloat16)
+    kept = float((m != 0).float().mean())
+    print(f"dropout keep fraction at {m.numel()} elements: {kept:.6f} (want 0.8 +- 1e-3)")
+    check(abs(kept - (1.0 - rate)) < 1e-3, "dropout keep fraction out of range")
+    check(torch.equal(m, dk.dropout_mask(seed, 0, TIMED_SHAPE, rate, torch.bfloat16)),
+          "the same seed gave another mask")
+    check(not torch.equal(m, dk.dropout_mask(seed + 1, 0, TIMED_SHAPE, rate, torch.bfloat16)),
+          "another seed gave the same mask")
+    check(not torch.equal(m, dk.dropout_mask(seed, 1, TIMED_SHAPE, rate, torch.bfloat16)),
+          "another call_index gave the same mask")
+    for r, want in ((1.0 - 2.0**-40, 0), (1.0 - 2.0**-33, 0), (0.5, round(0.5 * 2**32) - 1),
+                    (0.2, round(0.8 * 2**32) - 1), (2.0**-40, 2**32 - 2)):
+        check(dk.keep_threshold(r) == want, f"keep_threshold({r}) != {want}")
+        mk = dk.dropout_mask(seed, 0, (1 << 16,), r, torch.float32)
+        check(torch.equal(mk, dk.dropout_mask_reference(seed, 0, (1 << 16,), r, torch.float32,
+                                                        "cuda")), f"rate {r}: kernel != plain")
+    n_none = int((dk.dropout_mask(seed, 0, (1 << 16,), 1.0 - 2.0**-40, torch.float32) != 0).sum())
+    n_all = int((dk.dropout_mask(seed, 0, (1 << 16,), 2.0**-40, torch.float32) != 0).sum())
+    print(f"dropout extreme rates on 65536 elements: rate 1-2^-40 kept {n_none}, "
+          f"rate 2^-40 kept {n_all}")
+    check(n_none <= 1 and n_all >= (1 << 16) - 1, "extreme rates not clamped")
+
+    x = torch.randn(TIMED_SHAPE, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(TIMED_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
+    dk.DropoutFunction.apply(x, seed, 3, rate).backward(g)
+    want = g * dk.dropout_mask_reference(seed, 3, TIMED_SHAPE, rate, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    check(torch.equal(x.grad, want), "DropoutFunction's gradient != grad * mask")
+    print("dropout backward: grad == grad_out * mask, bit-equal")
+
+    # timing at the largest shape; six inputs in turn (63 MB) so that L2
+    # (50 MB) cannot serve a launch from the previous one's data
+    n = m.numel()
+    xs = [torch.randn(TIMED_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
+          for _ in range(6)]
+    turn = itertools.cycle(xs)
+    t = dict(
+        ms=cuda_ms(lambda: dk.dropout_apply(next(turn), seed, 0, rate)),
+        plain_ms=cuda_ms(lambda: dk.dropout_apply_reference(next(turn), seed, 0, rate), n=10),
+        library_ms=cuda_ms(lambda: F.dropout(next(turn), rate, training=True)),
+        bound=bound_ms(2 * 2 * n, n, n * PHILOX_INT_OPS_PER_ELEMENT))
+    mask_ms = cuda_ms(lambda: dk.dropout_mask(seed, 0, TIMED_SHAPE, rate, torch.bfloat16))
+    mask_bound = bound_ms(2 * n, 0, n * PHILOX_INT_OPS_PER_ELEMENT)
+    print(f"timing {TIMED_SHAPE} bf16 dropout_apply: kernel_ms={t['ms']:.4f} "
+          f"plain_ms={t['plain_ms']:.4f} library_ms(F.dropout)={t['library_ms']:.4f} "
+          f"bound_us={t['bound'][0] * 1e3:.2f} ({t['bound'][1]}; bytes alone "
+          f"{4 * n / HBM_BYTES_PER_S * 1e6:.2f})")
+    print(f"timing {TIMED_SHAPE} bf16 dropout_mask: kernel_ms={mask_ms:.4f} "
+          f"bound_us={mask_bound[0] * 1e3:.2f} ({mask_bound[1]})")
+    return err, t
+
+
+# ---- phase 7: training path -------------------------------------------------
+
+def synthetic_chunks(n: int, seed: int, styles=("cuba", "upright")) -> dict:
+    """Seeded preprocessed-dataset arrays: rolls in {0, 1}, onoff in
+    {-1, 0, 1}, log-power specs uniform in [0, 8], two styles."""
+    rng = np.random.default_rng(seed)
+    raw = {"pianoroll": (rng.random((n, 860, 128), dtype=np.float32) < 0.05).astype(np.float32),
+           "onoff": rng.integers(-1, 2, (n, 860, 128)).astype(np.float32)}
+    for s in styles:
+        raw[f"spec_{s}"] = rng.random((n, 1025, 860), dtype=np.float32) * 8.0
+    return raw
+
+
+def train_phase(torch, dk, glue):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.train.checkpoint import ExperimentState
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, device_prefetch
+
+    batch_size = 16
+    t0 = time.perf_counter()
+    tr = Trainer(ModelConfig(), TrainConfig(batch_size=batch_size, seed=0), device="cuda")
+    tr.init_state(0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    print(f"train: PerformanceNet params={n_params} + Adam built in {time.perf_counter() - t0:.2f} s")
+    check(n_params == FULL_WIDTH_PARAMS, f"param count {n_params} != {FULL_WIDTH_PARAMS}")
+    train_ds = ChunkDataset.from_arrays(synthetic_chunks(32, seed=1), seed=0)
+    test_ds = ChunkDataset.from_arrays(synthetic_chunks(24, seed=2), seed=1)
+
+    def step_launches():
+        return dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"]
+
+    glue.reset_launches()  # counts from here on are the training path's
+    dk.reset_launches()
+    exp = ExperimentState(1, 1, "chip_smoke")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.train_epoch(train_ds, epoch=0, log_every=1, exp=exp)
+    torch.cuda.synchronize()
+    print(f"train: train_epoch of 2 steps (first cold) {time.perf_counter() - t:.3f} s, "
+          f"losses {exp.iter_train_loss}")
+    check(len(exp.iter_train_loss) == 2 and np.isfinite(exp.iter_train_loss).all(),
+          "train_epoch losses not finite")
+    check(step_launches() == (20, 20), f"dropout launches after 2 steps: {step_launches()}")
+
+    batch = next(device_prefetch(train_ds.epoch_batches(batch_size), torch.device("cuda")))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = tr.train_step(batch, tr.next_dropout_seed())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        check(step_launches() == (20 + 10 * (i + 1),) * 2,
+              f"step {i}: dropout launches {step_launches()}, want 10 + 10 per step")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[1:])
+    print(f"train: 10 steps on one batch, losses {[round(x, 6) for x in losses]}")
+    print(f"train: step times s {[round(x, 4) for x in times]}")
+    print(f"train: warm step median {step_s:.4f} s, {batch_size * 860 / step_s:.0f} frames/s, "
+          f"max_memory_allocated_GB={peak / 1e9:.3f} (batch {batch_size}, bf16 compute)")
+    check(bool(np.isfinite(losses).all()), "training loss not finite")
+    check(losses[-1] < losses[0], f"loss did not fall over 10 steps: {losses[0]} -> {losses[-1]}")
+
+    before = step_launches()
+    test_loss = tr.evaluate(test_ds)
+    print(f"train: evaluate over 24 chunks (16 + 8 padded) mse={test_loss:.6f}")
+    check(bool(np.isfinite(test_loss)), "eval MSE not finite")
+    check(step_launches() == before, "evaluate launched the dropout kernel")
+    check(not any(glue.LAUNCHES.values()), "training launched the Griffin-Lim glue")
+    launches = sum(step_launches())
+    print(f"launches on the training path: {dict(dk.LAUNCHES)} (12 steps)")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    seed = tr.next_dropout_seed()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            tr.train_step(batch, seed)
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies), not the annotations
+    # (Optimizer.step#...) that mirror host ranges onto the device's timeline
+    rows = sorted(((dev_us(e) / 3e3, e.count // 3, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False) and "#" not in e.key),
+                  reverse=True)
+    device_ms = sum(ms for ms, _, _ in rows)
+    print(f"profile: train step (3 warm steps under the profiler): device {device_ms:.2f} ms/step "
+          f"in {sum(c for _, c, _ in rows)} kernels and copies; device busy "
+          f"{100 * device_ms / (step_s * 1e3):.1f} % of the unprofiled warm step")
+    for ms, count, key in rows[:15]:
+        print(f"profile: {ms:8.3f} ms/step {100 * ms / device_ms:5.1f} % x{count:<4d} {key[:90]}")
+    for ms, count, key in rows:
+        if "philox_dropout" in key:
+            print(f"profile: dropout kernel {ms:.3f} ms/step ({100 * ms / device_ms:.2f} %) "
+                  f"in {count} launches: {key[:90]}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -342,6 +583,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     from ml_music_style_transfer_tpu_torch.ops import stft as tstft
     from ml_music_style_transfer_tpu_torch.ops.kernels import _build
+    from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
     from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue as glue
 
     smi = smi_line()
@@ -359,8 +601,13 @@ def main() -> None:
 
     errs, timing = kernel_phase(torch, glue, tstft)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, warm = main_path(torch, glue, tmp)
+        launches, warm = main_path(torch, glue, dk, tmp)
         profile_phase(torch, warm)
+    del warm  # the serving model's 2.9 GB go back before training
+    gc.collect()
+    torch.cuda.empty_cache()
+    dropout_err, dropout_t = dropout_phase(torch, dk)
+    dropout_launches = train_phase(torch, dk, glue)
 
     kernels = []
     for name, src_line in (("gl_ola_nola", "ml_music_style_transfer_tpu/ops/pallas/gl_glue.py:95"),
@@ -372,6 +619,14 @@ def main() -> None:
             "replaces": src_line, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None})
+    kernels.append({
+        "name": "philox_dropout", "route": "cuda",
+        "source": "ml_music_style_transfer_tpu_torch/csrc/dropout.cu",
+        "replaces": "ml_music_style_transfer_tpu/ops/pallas/dropout.py:94",
+        "launches": dropout_launches, "max_abs_err": dropout_err,
+        "ms": dropout_t["ms"], "plain_ms": dropout_t["plain_ms"],
+        "bound_ms": dropout_t["bound"][0], "bound_by": dropout_t["bound"][1],
+        "library_ms": dropout_t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

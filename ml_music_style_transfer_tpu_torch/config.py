@@ -1,6 +1,10 @@
 """Configuration dataclasses, the port's own copy of the JAX package's
-``config.py`` (``DSPConfig`` and ``ModelConfig``: same fields, defaults and
-``scaled()`` rounding). ``TrainConfig`` arrives with the training slice.
+``config.py`` (``DSPConfig``, ``ModelConfig`` and ``TrainConfig``: same
+fields, defaults and ``scaled()`` rounding).
+
+``TrainConfig`` keeps every field of the JAX one so configurations compare
+field by field; the options the port does not train with yet are refused
+by ``unsupported_train_options`` where a ``Trainer`` is built.
 """
 from __future__ import annotations
 
@@ -67,7 +71,9 @@ class ModelConfig:
     compat_mbr_noop: bool = False
     # conv/linear inputs run in this dtype; params and IN statistics stay f32
     compute_dtype: str = "bfloat16"
-    # Rematerialisation belongs to training; kept so configs compare equal.
+    # Recompute each encoder DownConv in the backward pass
+    # (torch.utils.checkpoint), as the JAX model's nn.remat: less activation
+    # memory for about a third more encoder FLOPs. Outputs are unchanged.
     remat: bool = False
 
     def scaled(self, c: int) -> int:
@@ -90,6 +96,59 @@ class ModelConfig:
     def n_out_bins(self) -> int:
         """Output spectrogram bins (lastconv out-channels = 1025)."""
         return self.start_audio_channels
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop settings (reference model/train.py:188-219)."""
+
+    epochs: int = 1
+    test_freq: int = 1
+    exp_name: str = "piano_test"
+    batch_size: int = 16
+    learning_rate: float = 1e-3       # Adam lr (train.py:188)
+    n_train_read: int | None = None
+    n_test_read: int | None = None
+    seed: int = 42                    # dataset and dropout RNG seed (train.py:47)
+    # ReduceLROnPlateau defaults matching torch.optim.lr_scheduler (train.py:191)
+    plateau_factor: float = 0.1
+    plateau_patience: int = 10
+    # optional multi-scale spectral loss (train/losses.py); 0 = L1 only
+    spectral_loss_weight: float = 0.0
+    spectral_loss_mode: str = "linlog"  # "linlog", "log" or "direct"
+    # Optimizer options of the JAX package that the port does not run yet
+    # (see unsupported_train_options); the defaults are plain f32 Adam.
+    adam_mu_dtype: str | None = None
+    adam_nu_dtype: str | None = None
+    grads_dtype: str | None = None
+    grad_clip_norm: float | None = None
+    warmup_steps: int = 0
+    ema_decay: float | None = None
+    mesh_shape: Tuple[int, int] = (1, 1)
+    grad_accum: int = 1
+    zero_opt: bool = False
+
+
+_OPTIMIZER_ITEM = "ROADMAP queue 1 item 7 (optimizer options)"
+_MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 9 (multi-device)"
+
+
+def unsupported_train_options(cfg: TrainConfig) -> list[str]:
+    """Each option of ``cfg`` the port does not train with yet, with the
+    ROADMAP item that brings it; empty when ``cfg`` is fully supported."""
+    checks = (
+        ("adam_mu_dtype", cfg.adam_mu_dtype is not None, _OPTIMIZER_ITEM),
+        ("adam_nu_dtype", cfg.adam_nu_dtype is not None, _OPTIMIZER_ITEM),
+        ("grads_dtype", cfg.grads_dtype is not None, _OPTIMIZER_ITEM),
+        ("grad_clip_norm", cfg.grad_clip_norm is not None, _OPTIMIZER_ITEM),
+        ("warmup_steps", cfg.warmup_steps > 0, _OPTIMIZER_ITEM),
+        ("ema_decay", cfg.ema_decay is not None, _OPTIMIZER_ITEM),
+        ("grad_accum", cfg.grad_accum > 1, _OPTIMIZER_ITEM),
+        ("zero_opt", cfg.zero_opt, _MULTI_DEVICE_ITEM),
+        ("mesh_shape", tuple(cfg.mesh_shape) != (1, 1), _MULTI_DEVICE_ITEM),
+    )
+    return [f"{name}={getattr(cfg, name)!r} waits for {item}"
+            for name, bad, item in checks if bad]
 
 
 DEFAULT_DSP = DSPConfig()

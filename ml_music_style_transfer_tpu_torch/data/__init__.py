@@ -1,2 +1,3 @@
-"""Data layer: audio IO (the rest of the data path arrives in a later slice)."""
-from . import audio_io  # noqa: F401
+"""Data layer: audio IO, the HDF5 reader and the in-memory chunk dataset
+(preprocessing, the native loader and the device store arrive later)."""
+from . import audio_io, dataset, hdf5_store  # noqa: F401

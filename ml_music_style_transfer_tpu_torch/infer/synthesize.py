@@ -15,13 +15,14 @@ model/inference.py:22-110), serving path only:
 Everything after the WAV decode stays on the device; the host sees the
 waveform. The random Griffin-Lim phase comes from a ``torch.Generator``
 seeded 0, so the waveform differs from the JAX package's by design.
-Resolving msgpack/orbax checkpoints, the whole-clip and time-sharded paths
-and the serving caches arrive in later slices.
+Weights come from the experiment's best checkpoint: the port's own
+``checkpoint-{epoch}.pt`` (written by ``train/loop.py``) or a reference
+``.tar``. Reading msgpack/orbax checkpoints, EMA weights, the whole-clip
+and time-sharded paths and the serving caches arrive in later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 
 import numpy as np
@@ -36,19 +37,9 @@ from ..midi import pianoroll as pr
 from ..models import PerformanceNet
 from ..ops import griffinlim as tgl
 from ..ops import stft as tstft
+from ..train import checkpoint as ckpt
 
-
-def _best_reference_checkpoint(exp_dir: str) -> str:
-    """``checkpoint-{best_epoch}.tar`` named by the experiment's
-    hyperparams.json (reference inference.py:120-122)."""
-    with open(os.path.join(exp_dir, "hyperparams.json")) as f:
-        best = json.load(f)["best_epoch"]
-    path = os.path.join(exp_dir, f"checkpoint-{best}.tar")
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{path} not found; the port loads reference .tar checkpoints "
-            "(msgpack/orbax checkpoints arrive with the training slice)")
-    return path
+EMA_ITEM = "ROADMAP queue 1 item 7 (optimizer options: EMA)"
 
 
 def build_model(model_cfg: ModelConfig, state_dict, device) -> PerformanceNet:
@@ -100,9 +91,10 @@ class AudioSynthesizer:
         device: str | torch.device | None = "cuda",
     ):
         """``params``: a state_dict (torch tensors or numpy arrays, reference
-        key names) to serve directly. Otherwise ``checkpoint_path`` (a
-        reference ``.tar``), or the experiment's best-epoch ``.tar``.
-        ``device`` defaults to the card and raises when there is none."""
+        key names) to serve directly. Otherwise ``checkpoint_path`` (a port
+        ``.pt`` or a reference ``.tar``), or the experiment's best
+        checkpoint (``train/checkpoint.best_checkpoint``). ``device``
+        defaults to the card and raises when there is none."""
         self.device = resolve_device(device)
         self.exp_dir = exp_dir
         self.hp = hp
@@ -110,19 +102,19 @@ class AudioSynthesizer:
         self.audio_source = audio_source
         if params is None:
             if checkpoint_path is None:
-                checkpoint_path = _best_reference_checkpoint(exp_dir)
-            if not checkpoint_path.endswith(".tar"):
-                raise NotImplementedError(
-                    f"{checkpoint_path}: the port loads reference .tar checkpoints; "
-                    "msgpack/orbax checkpoints arrive with the training slice")
+                checkpoint_path, _ = ckpt.best_checkpoint(exp_dir)
             if use_ema:
-                raise ValueError("reference .tar checkpoints carry no EMA weights")
-            if not model_cfg.compat_mbr_noop:
-                # the reference's MBR conv weights are untrained (model.py:172)
-                print("note: reference .tar checkpoint — forcing "
-                      "compat_mbr_noop=True for output parity")
-                model_cfg = dataclasses.replace(model_cfg, compat_mbr_noop=True)
-            params = load_reference_checkpoint(checkpoint_path, compat_mbr_noop=True)
+                raise NotImplementedError(f"use_ema waits for {EMA_ITEM}")
+            if checkpoint_path.endswith(".tar"):
+                if not model_cfg.compat_mbr_noop:
+                    # the reference's MBR conv weights are untrained (model.py:172)
+                    print("note: reference .tar checkpoint — forcing "
+                          "compat_mbr_noop=True for output parity")
+                    model_cfg = dataclasses.replace(model_cfg, compat_mbr_noop=True)
+                params = load_reference_checkpoint(checkpoint_path, compat_mbr_noop=True)
+            else:
+                # a port-trained model, MBR blocks and all, served as trained
+                params = ckpt.restore_checkpoint(checkpoint_path)["params"]
         self.model_cfg = model_cfg
         self.model = build_model(model_cfg, params, self.device)
 

@@ -1,4 +1,4 @@
-"""PerformanceNet building blocks in PyTorch (eval-only in this slice).
+"""PerformanceNet building blocks in PyTorch.
 
 Counterpart of the JAX package's ``models/layers.py`` (reference
 model/model.py:14-174). The JAX model is channel-last (B, T, C); these
@@ -11,8 +11,11 @@ with ``strict=True``.
 ``compute_dtype`` follows the JAX model: conv and linear inputs, weights and
 biases are cast to it (bfloat16 by default) while parameters stay float32;
 InstanceNorm statistics are float32 and its output returns to the compute
-dtype. Convolutions and linears are library calls (``torch.nn.functional``),
-as the JAX model leaves them to XLA outside any Pallas kernel.
+dtype (a float64 compute dtype keeps float64 statistics, for the training
+tests' float64 yardstick). Convolutions and linears are library calls
+(``torch.nn.functional``), as the JAX model leaves them to XLA outside any
+Pallas kernel. DenseConcat's training-mode dropout is the hand-written
+Philox kernel (``ops/kernels/dropout.py``).
 """
 from __future__ import annotations
 
@@ -20,17 +23,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.dropout import DropoutFunction
+
+
+def stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At least float32: bf16/f16 -> f32, f32 -> f32, f64 -> f64."""
+    return torch.promote_types(dtype, torch.float32)
+
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over the time axis of (B, C, T), float32 statistics
     (torch.nn.InstanceNorm1d with affine=False, track_running_stats=False)."""
-    x32 = x.float()
+    x32 = x.to(stat_dtype(x.dtype))
     var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=slope)
+
+
+def fast_dropout(x: torch.Tensor, seed: int, call_index: int, rate: float) -> torch.Tensor:
+    """Dropout through the Philox kernel: ``x * mask`` with the mask of
+    (seed, call_index), gradient ``grad * mask`` (the JAX package's
+    ``layers.fast_dropout``, layers.py:49-67, with a seed and call index in
+    place of a JAX key)."""
+    return DropoutFunction.apply(x.contiguous(), seed, call_index, rate)
 
 
 def crop_and_concat(upsampled: torch.Tensor, bypass: torch.Tensor) -> torch.Tensor:
@@ -162,7 +180,9 @@ class UpConv(nn.Module):
 
 class DenseConcat(nn.Module):
     """Latent fusion of the MIDI/audio branches (model.py:93-108): channel
-    concat [audio, midi], then two Linear+ReLU (+Dropout(0.2) in training)."""
+    concat [audio, midi], then two Linear+ReLU, each followed in training
+    by Dropout(rate) (JAX layers.py:216-232). The two dropouts use call
+    indices ``call_index`` and ``call_index + 1`` of ``dropout_seed``."""
 
     def __init__(self, in_ch: int, intermediate: int, features: int,
                  dropout_rate: float = 0.2, compute_dtype: str = "bfloat16",
@@ -173,14 +193,20 @@ class DenseConcat(nn.Module):
         self.dropout_rate = dropout_rate
         self.compute_dtype = _dtype(compute_dtype)
 
-    def forward(self, midi_embed, audio_embed, deterministic: bool = True):
-        if not deterministic and self.dropout_rate > 0.0:
-            raise NotImplementedError(
-                "dropout (deterministic=False) arrives with the training slice")
+    def forward(self, midi_embed, audio_embed, deterministic: bool = True,
+                dropout_seed: int | None = None, call_index: int = 0):
+        train = not deterministic and self.dropout_rate > 0.0
+        if train and dropout_seed is None:
+            raise ValueError("deterministic=False needs a dropout_seed")
         dt = self.compute_dtype
         x = torch.cat([audio_embed.to(dt), midi_embed.to(dt)], dim=1)
         x = F.relu(self.fc1(x))
-        return F.relu(self.fc2(x))
+        if train:
+            x = fast_dropout(x, dropout_seed, call_index, self.dropout_rate)
+        x = F.relu(self.fc2(x))
+        if train:
+            x = fast_dropout(x, dropout_seed, call_index + 1, self.dropout_rate)
+        return x
 
 
 class MBRBlock(nn.Module):

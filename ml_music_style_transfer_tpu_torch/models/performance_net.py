@@ -17,16 +17,23 @@ onset_offset_encoder.down_convs.i.conv1, ...), so a reference checkpoint
 loads with ``load_state_dict(strict=True)``.
 
 Public I/O is the JAX layout: midi (B, T, 128), conditioning spec
-(B, T, 1025), onoff (B, T, 128) -> (B, T, 1025) float32. Inside, the model
-runs channel-first.
+(B, T, 1025), onoff (B, T, 128) -> (B, T, 1025) float32 (float64 with a
+float64 compute dtype). Inside, the model runs channel-first.
+
+Training mode (``deterministic=False``) takes a 64-bit ``dropout_seed``:
+DenseConcat i draws its two masks with call indices 2i and 2i + 1, so one
+seed gives the step's ten masks. ``cfg.remat`` recomputes each encoder
+DownConv in the backward pass, as the JAX model's ``nn.remat(DownConv)``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from .layers import ConvTranspose1dTorch, DenseConcat, DownConv, MBRBlock, UpConv, leaky_relu
+from .layers import (ConvTranspose1dTorch, DenseConcat, DownConv, MBRBlock, UpConv, leaky_relu,
+                     stat_dtype)
 
 
 class OnsetOffsetEncoder(nn.Module):
@@ -115,38 +122,46 @@ class PerformanceNet(nn.Module):
             else:
                 nn.init.xavier_normal_(p, generator=generator)
 
-    def forward_channel_first(self, midi, audio, cond, deterministic: bool = True):
+    def _encode(self, down: DownConv, x):
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(down, x, use_reentrant=False)
+        return down(x)
+
+    def forward_channel_first(self, midi, audio, cond, deterministic: bool = True,
+                              dropout_seed: int | None = None):
         """(B,128,T), (B,1025,T), (B,128,T) -> (B,1025,T') float32: the
         reference's model(score, spec, onoff) layout (model.py:262)."""
         midi_skips, audio_skips = [], []
         h = midi
         for down in self.down_convs:
-            h, before = down(h)
+            h, before = self._encode(down, h)
             midi_skips.append(before)
         a = audio
         for down in self.down_convs_audio:
-            a, before = down(a)
+            a, before = self._encode(down, a)
             audio_skips.append(before)
 
-        x = self.dense_concats[0](h, a, deterministic)
+        x = self.dense_concats[0](h, a, deterministic, dropout_seed, 0)
         onoff_conditions = self.onset_offset_encoder(cond)
         for i, up in enumerate(self.up_convs):
             skip = self.dense_concats[i + 1](midi_skips[-(i + 2)], audio_skips[-(i + 2)],
-                                             deterministic)
+                                             deterministic, dropout_seed, 2 * (i + 1))
             # reference indexing quirk: Onoff_Conditions[i-1] => [-1] then [0]
             c = onoff_conditions[i - 1] if up.has_condition else None
             x = up(skip, x, c)
         for j in range(1, 5):
             x = getattr(self, f"MBRBlock{j}")(x)
         x = self.lastconv(x)
-        return leaky_relu(x, self.cfg.leaky_relu_slope).float()
+        x = leaky_relu(x, self.cfg.leaky_relu_slope)
+        return x.to(stat_dtype(x.dtype))
 
-    def forward(self, x_midi, x_audio, cond, deterministic: bool = True):
+    def forward(self, x_midi, x_audio, cond, deterministic: bool = True,
+                dropout_seed: int | None = None):
         """midi (B,T,128), audio spec (B,T,1025), onoff (B,T,128) ->
         (B,T',1025) float32, the JAX model's channel-last signature."""
         out = self.forward_channel_first(
             x_midi.transpose(1, 2), x_audio.transpose(1, 2), cond.transpose(1, 2),
-            deterministic)
+            deterministic, dropout_seed)
         return out.transpose(1, 2)
 
 

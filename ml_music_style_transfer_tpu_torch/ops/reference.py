@@ -1,4 +1,5 @@
-"""NumPy helpers for the DSP constants (window and NOLA normalisation).
+"""NumPy helpers for the DSP constants (window, NOLA normalisation, mel
+filterbank).
 
 The port's own copy of the helpers it needs from the JAX package's
 ``ops/reference.py`` (librosa-compatible semantics).
@@ -34,3 +35,61 @@ def window_sumsquare(
         s = i * hop_length
         x[s : s + n_fft] += wsq
     return x
+
+
+def hz_to_mel(frequencies: np.ndarray, htk: bool = False) -> np.ndarray:
+    """Slaney (default) or HTK mel scale (librosa.hz_to_mel)."""
+    frequencies = np.asanyarray(frequencies, dtype=np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + frequencies / 700.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    mels = (frequencies - f_min) / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = frequencies >= min_log_hz
+    mels = np.where(
+        log_t,
+        min_log_mel + np.log(np.maximum(frequencies, min_log_hz) / min_log_hz) / logstep,
+        mels,
+    )
+    return mels
+
+
+def mel_to_hz(mels: np.ndarray, htk: bool = False) -> np.ndarray:
+    mels = np.asanyarray(mels, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_min, f_sp = 0.0, 200.0 / 3
+    freqs = f_min + f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = (min_log_hz - f_min) / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = mels >= min_log_mel
+    return np.where(log_t, min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+
+
+def mel_filterbank(
+    sr: int = 44100,
+    n_fft: int = 2048,
+    n_mels: int = 128,
+    fmin: float = 0.0,
+    fmax: float | None = None,
+    htk: bool = False,
+) -> np.ndarray:
+    """Slaney-normalized triangular mel filterbank, (n_mels, 1 + n_fft//2)
+    (librosa.filters.mel(norm='slaney', htk=False))."""
+    if fmax is None:
+        fmax = sr / 2.0
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    mel_pts = mel_to_hz(
+        np.linspace(hz_to_mel(np.array(fmin), htk), hz_to_mel(np.array(fmax), htk), n_mels + 2),
+        htk,
+    )
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_pts[2 : n_mels + 2] - mel_pts[:n_mels])
+    return weights * enorm[:, None]

@@ -32,6 +32,17 @@ TINY_PARAMS = 3_338_617
 RTOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Tier-1 runs six test workers on one machine; torch's default of one
+    thread per core oversubscribes it (a train step here ran 10x slower),
+    so this module's torch ops use two threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_close(got, want):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-4 * np.abs(want).max())
 
@@ -82,10 +93,19 @@ class TestForwardParity:
         _assert_close(got, want)
 
     def test_training_forward_waits_for_the_training_slice(self, flax_model):
+        """The training slice has landed: a training forward needs a
+        dropout seed, is reproducible from it, and drops activations."""
         model = build_model(ModelConfig(**TINY_KW), from_jax_params(flax_model[1]), "cpu")
         midi, spec, onoff = map(torch.from_numpy, _inputs(batch=1))
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(ValueError, match="dropout_seed"):
             model(midi, spec, onoff, deterministic=False)
+        with torch.no_grad():
+            a = model(midi, spec, onoff, deterministic=False, dropout_seed=5)
+            b = model(midi, spec, onoff, deterministic=False, dropout_seed=5)
+            c = model(midi, spec, onoff, deterministic=False, dropout_seed=6)
+            ref = model(midi, spec, onoff)
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+        assert not torch.equal(a, c) and not torch.equal(a, ref)
 
 
 class TestShapes:

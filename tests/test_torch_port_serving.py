@@ -32,6 +32,17 @@ from ml_music_style_transfer_tpu_torch.ops import stft as tstft
 TINY_KW = dict(width_mult=1 / 16, compute_dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Tier-1 runs six test workers on one machine; torch's default of one
+    thread per core oversubscribes it (a train step here ran 10x slower),
+    so this module's torch ops use two threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def flax_params():
     model = JPerformanceNet(JModelConfig(**TINY_KW))
