@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths and its fused
+conv-block kernel on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -39,7 +39,16 @@ scipy and the standard library. Phases, each reported on its own lines:
      ``evaluate`` over a padded last batch; exactly 10 forward and 10
      backward dropout launches per step and none in eval; the warm step's
      time, frames/s, peak memory and a profile of the top device
-     operations.
+     operations. Neither serving nor training may launch the fused conv
+     kernel (the model keeps cuDNN's conv, as the JAX model keeps XLA's);
+  8. fused conv kernel: one full-width forward's 64 conv1x3 -> InstanceNorm
+     -> LeakyReLU blocks (``model_layer_shapes`` at batch 16, bfloat16)
+     through ``conv1x3_instnorm_lrelu``, which must count 64 launches; at
+     each of the 31 distinct shapes the kernel against its plain version
+     (per element |kernel - plain| <= 2^-7 |plain| + 1e-3 in bfloat16, and
+     2e-4 in float32 at three shapes), then its time beside the plain
+     version's, the cuDNN composite's (``bench_fused_conv.measure``) and its
+     bound, and the launch-weighted total over the 64 blocks.
 
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -62,6 +71,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM tensor cores, dense bfloat16
 # int32 ALU: 64 lanes per SM against float32's 128, one op per lane-cycle
 # against an FMA's two, so a quarter of the float32 FLOP rate
 INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
@@ -112,9 +122,14 @@ def cuda_ms(fn, n: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(n_bytes: float, n_flops: float, n_int_ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float, n_int_ops: float = 0.0,
+             n_bf16_flops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the operations'
+    time: float32 FLOPs, int32 ops and bfloat16 tensor-core FLOPs, each at
+    its own peak rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / F32_FLOPS_PER_S + n_int_ops / INT32_OPS_PER_S
+    t_ops = (n_flops / F32_FLOPS_PER_S + n_int_ops / INT32_OPS_PER_S
+             + n_bf16_flops / BF16_FLOPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -573,6 +588,100 @@ def train_phase(torch, dk, glue):
     return launches
 
 
+# ---- phase 8: fused conv kernel vs plain, and against cuDNN -----------------
+
+FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
+# float32 checks: midi L0, up_3.conv1 (1280 -> 1024 @860) and audio L4
+FUSED_F32_BLOCKS = ("down_convs.0.conv1", "up_convs.3.conv1", "down_convs_audio.4.conv1")
+FUSED_TIMED_BLOCK = "down_convs_audio.0.conv2"  # the largest: 1536 -> 1536 @860
+
+
+def fused_conv_phase(torch, fc):
+    """K1 at every distinct conv-block shape of the full-width model at
+    batch 16: first one forward's 64 blocks through the wrapper (the count
+    of launches read right after), then the kernel against its plain
+    version (bfloat16 at all shapes, float32 at three) and its time beside
+    the plain version's, the cuDNN composite's and its bound."""
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig
+    from ml_music_style_transfer_tpu_torch.scripts import bench_fused_conv as bench
+
+    blocks = fc.model_layer_shapes(ModelConfig(), 16)
+    first = {}
+    for blk in blocks:
+        first.setdefault(blk.shape, blk.name)
+    print(f"fused conv: {len(blocks)} blocks, {sum(b.launches for b in blocks)} launches, "
+          f"{len(first)} distinct shapes, "
+          f"{sum(6 * b.batch * b.t * b.cin * b.cout * b.launches for b in blocks) / 1e12:.3f} "
+          "TFLOP per forward at batch 16")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def inputs(shape, dtype):
+        B, T, cin, cout = shape
+        x = torch.randn((B, T, cin), device="cuda", generator=gen).to(dtype)
+        w = (torch.randn((3, cin, cout), device="cuda", generator=gen) / (3 * cin) ** 0.5).to(dtype)
+        return x, w, torch.randn(cout, device="cuda", generator=gen)
+
+    data = {shape: inputs(shape, torch.bfloat16) for shape in first}
+    fc.reset_launches()  # counts from here on are the fused-conv path's
+    t = time.perf_counter()
+    with torch.no_grad():
+        for blk in blocks:
+            for _ in range(blk.launches):
+                y = fc.conv1x3_instnorm_lrelu(*data[blk.shape])
+        torch.cuda.synchronize()
+    launches = fc.LAUNCHES["conv1x3_instnorm_lrelu"]
+    print(f"fused conv path: one full-width forward's blocks in {time.perf_counter() - t:.3f} s "
+          f"(first launches), {launches} kernel launches")
+    check(launches == FULL_FORWARD_BLOCKS, f"fused conv: {launches} launches, "
+          f"expected {FULL_FORWARD_BLOCKS}")
+    check(bool(torch.isfinite(y.float()).all()), "fused conv output not finite")
+
+    err_bf16 = 0.0
+    with torch.no_grad():
+        for shape, name in first.items():
+            x, w, b = data[shape]
+            got = fc.conv1x3_instnorm_lrelu(x, w, b).float()
+            want = fc.conv1x3_instnorm_lrelu_reference(x, w, b).float()
+            diff = (got - want).abs()
+            n_bad = int((diff > 2.0**-7 * want.abs() + 1e-3).sum())
+            e = float(diff.max())
+            err_bf16 = max(err_bf16, e)
+            print(f"fused conv bf16 {name} {shape}: max_abs_err={e:.3e} outside tolerance {n_bad}")
+            check(n_bad == 0, f"fused conv kernel disagrees at {name} {shape} (bf16)")
+        err_f32 = 0.0
+        for name in FUSED_F32_BLOCKS:
+            shape = next(b.shape for b in blocks if b.name == name)
+            x, w, b = inputs(shape, torch.float32)
+            e = float((fc.conv1x3_instnorm_lrelu(x, w, b)
+                       - fc.conv1x3_instnorm_lrelu_reference(x, w, b)).abs().max())
+            err_f32 = max(err_f32, e)
+            print(f"fused conv f32 {name} {shape}: max_abs_err={e:.3e} (tolerance 2e-4)")
+            check(e <= 2e-4, f"fused conv kernel disagrees at {name} {shape} (f32)")
+            del x, w, b
+    print("fused conv tolerance, bf16: |kernel - plain| <= 2^-7 |plain| + 1e-3 per element "
+          "(one bf16 rounding step; both sum exact bf16 products in f32, in other orders)")
+
+    rows = {}
+    with torch.no_grad():
+        for shape, name in first.items():
+            r = bench.measure(*data[shape])
+            n_bytes, gemm, norm = bench.block_work(*shape, torch.bfloat16)
+            r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, norm, n_bf16_flops=gemm)
+            rows[shape] = r
+            print(f"timing fused conv {name} {shape}: kernel_ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} cudnn_ms={r['library_ms']:.4f} "
+                  f"bound_us={r['bound_ms'] * 1e3:.2f} ({r['bound_by']}) "
+                  f"of_bound={100 * r['bound_ms'] / r['ms']:.1f}%", flush=True)
+    tot = bench.weighted_total(blocks, rows)
+    print(f"fused conv, one full-width forward ({FULL_FORWARD_BLOCKS} launches, batch 16, bf16): "
+          f"kernel_ms={tot['ms']:.3f} cudnn_composite_ms={tot['library_ms']:.3f} "
+          f"bound_ms={tot['bound_ms']:.3f}")
+    print("library_ms for the fused conv: the cuDNN composite F.conv1d -> F.instance_norm -> "
+          "F.leaky_relu on (B, C, T); no single PyTorch call computes the block")
+    timed = rows[next(b.shape for b in blocks if b.name == FUSED_TIMED_BLOCK)]
+    return launches, max(err_bf16, err_f32), timed
+
+
 def main() -> None:
     import torch
 
@@ -584,6 +693,7 @@ def main() -> None:
     from ml_music_style_transfer_tpu_torch.ops import stft as tstft
     from ml_music_style_transfer_tpu_torch.ops.kernels import _build
     from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
+    from ml_music_style_transfer_tpu_torch.ops.kernels import fused_conv as fc
     from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue as glue
 
     smi = smi_line()
@@ -600,14 +710,22 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}")
 
     errs, timing = kernel_phase(torch, glue, tstft)
+    fc.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         launches, warm = main_path(torch, glue, dk, tmp)
         profile_phase(torch, warm)
     del warm  # the serving model's 2.9 GB go back before training
     gc.collect()
     torch.cuda.empty_cache()
+    check(not any(fc.LAUNCHES.values()), "serving launched the fused conv kernel")
     dropout_err, dropout_t = dropout_phase(torch, dk)
     dropout_launches = train_phase(torch, dk, glue)
+    check(not any(fc.LAUNCHES.values()), "training launched the fused conv kernel")
+    print("fused conv kernel launches on the serving and training paths: 0 (the model "
+          "keeps cuDNN's conv, as the JAX model keeps XLA's)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    conv_launches, conv_err, conv_t = fused_conv_phase(torch, fc)
 
     kernels = []
     for name, src_line in (("gl_ola_nola", "ml_music_style_transfer_tpu/ops/pallas/gl_glue.py:95"),
@@ -627,6 +745,14 @@ def main() -> None:
         "ms": dropout_t["ms"], "plain_ms": dropout_t["plain_ms"],
         "bound_ms": dropout_t["bound"][0], "bound_by": dropout_t["bound"][1],
         "library_ms": dropout_t["library_ms"]})
+    kernels.append({
+        "name": "conv1x3_instnorm_lrelu", "route": "cuda",
+        "source": "ml_music_style_transfer_tpu_torch/csrc/fused_conv.cu",
+        "replaces": "ml_music_style_transfer_tpu/ops/pallas/fused_conv.py:117",
+        "launches": conv_launches, "max_abs_err": conv_err,
+        "ms": conv_t["ms"], "plain_ms": conv_t["plain_ms"],
+        "bound_ms": conv_t["bound_ms"], "bound_by": conv_t["bound_by"],
+        "library_ms": conv_t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -55,7 +55,8 @@ def test_rule_catches_the_jax_package_but_not_the_port():
 @pytest.mark.parametrize("module", [
     f"{PKG}.infer.cli", f"{PKG}.infer.synthesize", f"{PKG}.ops.kernels.gl_glue",
     f"{PKG}.ops.kernels._build", f"{PKG}.compat.weights", f"{PKG}.ops.kernels.dropout",
-    f"{PKG}.train.cli", f"{PKG}.train.loop", f"{PKG}.data.dataset", f"{PKG}.ops.mel"])
+    f"{PKG}.train.cli", f"{PKG}.train.loop", f"{PKG}.data.dataset", f"{PKG}.ops.mel",
+    f"{PKG}.ops.kernels.fused_conv", f"{PKG}.scripts.bench_fused_conv"])
 def test_modules_import_without_nvcc_or_a_card(module):
     """Importing builds nothing: kernels compile at their first launch."""
     importlib.import_module(module)
