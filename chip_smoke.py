@@ -41,14 +41,17 @@ scipy and the standard library. Phases, each reported on its own lines:
      time, frames/s, peak memory and a profile of the top device
      operations. Neither serving nor training may launch the fused conv
      kernel (the model keeps cuDNN's conv, as the JAX model keeps XLA's);
-  8. fused conv kernel: one full-width forward's 64 conv1x3 -> InstanceNorm
-     -> LeakyReLU blocks (``model_layer_shapes`` at batch 16, bfloat16)
-     through ``conv1x3_instnorm_lrelu``, which must count 64 launches; at
-     each of the 31 distinct shapes the kernel against its plain version
-     (per element |kernel - plain| <= 2^-7 |plain| + 1e-3 in bfloat16, and
-     2e-4 in float32 at three shapes), then its time beside the plain
-     version's, the cuDNN composite's (``bench_fused_conv.measure``) and its
-     bound, and the launch-weighted total over the 64 blocks.
+  8. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
+     (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
+     or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
+     InstanceNorm -> LeakyReLU blocks (``model_layer_shapes`` at batch 16,
+     bfloat16) through ``conv1x3_instnorm_lrelu``, which must count 64
+     launches; at each of the 31 distinct shapes the kernel against its
+     plain version (per element |kernel - plain| <= 2^-7 |plain| + 1e-3 in
+     bfloat16, and 2e-4 in float32 at three shapes), then its time beside
+     the plain version's, the cuDNN composite's (``bench_fused_conv.measure``)
+     and its bound, the CTAs its GEMM launches and the composite's time over
+     the kernel's; the launch-weighted totals and ratio over the 64 blocks.
 
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -120,6 +123,11 @@ def cuda_ms(fn, n: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def dev_us(e) -> float:
+    """A torch.profiler event's own device time in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
 def bound_ms(n_bytes: float, n_flops: float, n_int_ops: float = 0.0,
@@ -363,9 +371,6 @@ def profile_phase(torch, synth, n_iter: int = 100) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     with torch.inference_mode():
         loop(2)  # warm-up
         wall_us = min(loop(n_iter) for _ in range(3)) / n_iter * 1e6
@@ -561,9 +566,6 @@ def train_phase(torch, dk, glue):
     launches = sum(step_launches())
     print(f"launches on the training path: {dict(dk.LAUNCHES)} (12 steps)")
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     seed = tr.next_dropout_seed()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
@@ -596,14 +598,37 @@ FUSED_F32_BLOCKS = ("down_convs.0.conv1", "up_convs.3.conv1", "down_convs_audio.
 FUSED_TIMED_BLOCK = "down_convs_audio.0.conv2"  # the largest: 1536 -> 1536 @860
 
 
+def sass_counts(lib_path: str) -> dict:
+    """Instructions in a built library's SASS (``cuobjdump -sass``, beside
+    nvcc): wgmma (HGMMA), TMA loads (UTMALDG), mma.sync (HMMA) and
+    cp.async (LDGSTS)."""
+    import re
+
+    from ml_music_style_transfer_tpu_torch.ops.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    ops = re.findall(r"\b(HGMMA|UTMALDG|HMMA|LDGSTS)\b", sass)
+    return {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")}
+
+
 def fused_conv_phase(torch, fc):
     """K1 at every distinct conv-block shape of the full-width model at
-    batch 16: first one forward's 64 blocks through the wrapper (the count
-    of launches read right after), then the kernel against its plain
-    version (bfloat16 at all shapes, float32 at three) and its time beside
-    the plain version's, the cuDNN composite's and its bound."""
+    batch 16: its SASS, then one forward's 64 blocks through the wrapper
+    (the count of launches read right after), then the kernel against its
+    plain version (bfloat16 at all shapes, float32 at three) and its time
+    beside the plain version's, the cuDNN composite's and its bound."""
     from ml_music_style_transfer_tpu_torch.config import ModelConfig
+    from ml_music_style_transfer_tpu_torch.ops.kernels import _build
     from ml_music_style_transfer_tpu_torch.scripts import bench_fused_conv as bench
+
+    sass = sass_counts(_build.library_path("fused_conv"))
+    print(f"fused conv SASS (libfused_conv.so): {sass}")
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+          "libfused_conv.so has no wgmma (HGMMA) or no TMA load (UTMALDG)")
+    check(sass["HMMA"] == 0 and sass["LDGSTS"] == 0,
+          "libfused_conv.so still holds mma.sync (HMMA) or cp.async (LDGSTS)")
 
     blocks = fc.model_layer_shapes(ModelConfig(), 16)
     first = {}
@@ -670,12 +695,19 @@ def fused_conv_phase(torch, fc):
             rows[shape] = r
             print(f"timing fused conv {name} {shape}: kernel_ms={r['ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} cudnn_ms={r['library_ms']:.4f} "
+                  f"cudnn/kernel={r['library_ms'] / r['ms']:.3f} ctas={r['ctas']} "
                   f"bound_us={r['bound_ms'] * 1e3:.2f} ({r['bound_by']}) "
                   f"of_bound={100 * r['bound_ms'] / r['ms']:.1f}%", flush=True)
     tot = bench.weighted_total(blocks, rows)
     print(f"fused conv, one full-width forward ({FULL_FORWARD_BLOCKS} launches, batch 16, bf16): "
           f"kernel_ms={tot['ms']:.3f} cudnn_composite_ms={tot['library_ms']:.3f} "
-          f"bound_ms={tot['bound_ms']:.3f}")
+          f"bound_ms={tot['bound_ms']:.3f} kernel/cudnn={tot['ms'] / tot['library_ms']:.3f} "
+          f"of_bound={100 * tot['bound_ms'] / tot['ms']:.1f}%")
+    slowest = min(first, key=lambda sh: rows[sh]["library_ms"] / rows[sh]["ms"])
+    print(f"fused conv, against cuDNN in this run: the kernel's least lead is at {first[slowest]} "
+          f"{slowest} (cudnn/kernel={rows[slowest]['library_ms'] / rows[slowest]['ms']:.3f}); "
+          f"shapes where cuDNN is faster: "
+          f"{sum(rows[sh]['library_ms'] < rows[sh]['ms'] for sh in first)} of {len(first)}")
     print("library_ms for the fused conv: the cuDNN composite F.conv1d -> F.instance_norm -> "
           "F.leaky_relu on (B, C, T); no single PyTorch call computes the block")
     timed = rows[next(b.shape for b in blocks if b.name == FUSED_TIMED_BLOCK)]
@@ -706,7 +738,7 @@ def main() -> None:
     print(f"build: {secs:.2f} s")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line.lower():
                 print(f"ptxas {name}: {line.strip()}")
 
     errs, timing = kernel_phase(torch, glue, tstft)

@@ -81,10 +81,15 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def library_path(name: str) -> str:
+    """Where ``lib<name>.so`` of the current sources and flags is built."""
+    return os.path.join(_build_dir(), f"lib{name}.so")
+
+
 def load(name: str) -> ctypes.CDLL:
     """``lib<name>.so`` loaded, building all kernels first if it is missing."""
     with _lock:
-        path = os.path.join(_build_dir(), f"lib{name}.so")
+        path = library_path(name)
         if not os.path.exists(path):
             build_all()
         return ctypes.CDLL(path)

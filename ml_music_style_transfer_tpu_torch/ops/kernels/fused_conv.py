@@ -1,13 +1,16 @@
 """Fused Conv1x3 -> InstanceNorm -> LeakyReLU: the CUDA kernel's wrapper and
-plain version, and the model's conv-block shapes.
+plain versions, and the model's conv-block shapes.
 
 Replaces the JAX package's Pallas kernel ``_kernel``
 (``ml_music_style_transfer_tpu/ops/pallas/fused_conv.py:42``, ``pallas_call``
 at :117): ``LReLU(InstanceNorm_T(conv1d(x, w, padding=1) + b))`` on
 channel-last activations, float32 accumulation and statistics. The kernel
-is ``csrc/fused_conv.cu`` (design and bound in its header): a conv GEMM into
-a float32 workspace, then the normalisation, two launches behind one C
-entry point; ``LAUNCHES`` counts one per wrapper call that launches them.
+is ``csrc/fused_conv.cu`` (design and bound in its header): a conv GEMM
+(bfloat16: wgmma fed by TMA) that writes y to a float32 workspace and each
+64-row box's partial statistics, then one normalisation pass that merges
+them; two launches behind one C entry point. ``LAUNCHES`` counts one per
+wrapper call that launches them. ``instnorm_stats_boxed`` is the plain
+version of that reduction.
 
 As in the JAX package, the model does not call it: the port's model keeps
 ``F.conv1d`` -> ``instance_norm`` -> ``leaky_relu`` (``models/layers.py``),
@@ -31,7 +34,8 @@ import torch.nn.functional as F
 LAUNCHES = {"conv1x3_instnorm_lrelu": 0}
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BF16_ALIGN = 8  # bfloat16 elements in the kernel's 16-byte copies
+_BF16_ALIGN = 8  # bfloat16 elements in 16 bytes: TMA's stride unit
+BOX = 64  # time rows of one item per GEMM box (csrc/fused_conv.cu kBox)
 
 
 def reset_launches() -> None:
@@ -61,6 +65,41 @@ def conv1x3_instnorm_lrelu_reference(x: torch.Tensor, w: torch.Tensor, b: torch.
     return torch.where(yn >= 0, yn, slope * yn).to(x.dtype)
 
 
+def instnorm_stats_boxed(y: torch.Tensor, box: int = BOX) -> tuple[torch.Tensor, torch.Tensor]:
+    """Population mean and variance over T of y (B, T, C), reduced as the
+    kernel reduces them, in y's dtype: each item's rows cut into boxes of
+    ``box`` (the last ragged), each box's mean and M2 = sum (y - box mean)^2
+    in two passes, then the boxes merged in order by Chan's formula
+    (n = na + nb, delta = mean_b - mean_a, mean += delta nb / n,
+    M2 += M2_b + delta^2 na nb / n). Returns (mean, var), each (B, C)."""
+    T = y.shape[1]
+    cnt = 0.0
+    mean = m2 = torch.zeros((y.shape[0], y.shape[2]), dtype=y.dtype, device=y.device)
+    for t0 in range(0, T, box):
+        yb = y[:, t0 : t0 + box]
+        nb = yb.shape[1]
+        bm = yb.sum(dim=1) / nb
+        bq = ((yb - bm[:, None]) ** 2).sum(dim=1)
+        tot = cnt + nb
+        delta = bm - mean
+        mean = mean + delta * (nb / tot)
+        m2 = m2 + bq + delta * delta * (cnt * nb / tot)
+        cnt = tot
+    return mean, m2 / T
+
+
+def gemm_ctas(batch: int, t: int, cout: int, dtype: torch.dtype) -> int:
+    """CTAs of the GEMM launch the kernel makes for (B, T, Cout) in
+    ``dtype`` on the current card: bfloat16, two 64-row boxes by a tile of
+    256, 192 or 128 output channels, the width picked from the card's SM
+    count (``csrc/fused_conv.cu`` ``tile_n``); float32, one box by 64.
+    Builds the kernel library, so it needs nvcc."""
+    n = _lib().conv1x3_instnorm_lrelu_ctas(batch, t, cout, _KERNEL_DTYPES[dtype])
+    if n < 0:
+        raise RuntimeError(f"conv1x3_instnorm_lrelu_ctas failed with cudaError {-n}")
+    return n
+
+
 # ---- wrapper ----------------------------------------------------------------
 
 @functools.cache
@@ -73,6 +112,8 @@ def _lib() -> ctypes.CDLL:
     lib.conv1x3_instnorm_lrelu.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
                                            ci, ci, ci, ci, ci, cf, cf, vp]
     lib.conv1x3_instnorm_lrelu.restype = ci
+    lib.conv1x3_instnorm_lrelu_ctas.argtypes = [ctypes.c_longlong, ci, ci, ci]
+    lib.conv1x3_instnorm_lrelu_ctas.restype = ctypes.c_longlong
     return lib
 
 
@@ -108,10 +149,11 @@ def conv1x3_instnorm_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """LeakyReLU(InstanceNorm_T(conv1x3(x))) in one call.
 
     x: (B, T, Cin) float32 or bfloat16, contiguous; w: (3, Cin, Cout), cast
-    to x's dtype (torch Conv1d k=3 s=1 p=1 semantics); b: (Cout,), taken in
-    float32. Returns (B, T, Cout) in x's dtype. The JAX wrapper's
-    ``block_b`` and ``interpret`` arguments pick a TPU tiling and the TPU
-    interpreter; they have no counterpart here.
+    to x's dtype (torch Conv1d k=3 s=1 p=1 semantics); b: (Cout,), which
+    the plain version adds in float32 and the kernel leaves out, since the
+    InstanceNorm cancels it. Returns (B, T, Cout) in x's dtype. The JAX
+    wrapper's ``block_b`` and ``interpret`` arguments pick a TPU tiling and
+    the TPU interpreter; they have no counterpart here.
     """
     _check(x, w, b)
     if x.device.type == "cpu":
@@ -121,10 +163,10 @@ def conv1x3_instnorm_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     B, T, cin = x.shape
     cout = w.shape[2]
     w = w.to(x.dtype).contiguous()
-    b = b.to(torch.float32).contiguous()
     if x.dtype == torch.bfloat16:
-        # the kernel's 16-byte copies: Cin and Cout padded to multiples of
-        # 8 with zeros (Cin = 1025 at audio_down_0.conv1), 16-byte starts
+        # TMA: row strides a multiple of 16 bytes, so Cin and Cout padded to
+        # multiples of 8 with zeros (Cin = 1025 at audio_down_0.conv1), and
+        # 16-byte starts
         cin_p, cout_p = _round_up(cin, _BF16_ALIGN), _round_up(cout, _BF16_ALIGN)
         x = F.pad(x, (0, cin_p - cin)) if cin_p != cin else _aligned(x)
         w = F.pad(w, (0, cout_p - cout, 0, cin_p - cin)) if (cin_p, cout_p) != (cin, cout) \
@@ -134,13 +176,18 @@ def conv1x3_instnorm_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((B, T, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    ws = torch.empty((B * T, cout_p), dtype=torch.float32, device=x.device)
+    # y (B*T, ldy) then the boxes' (mean, M2) partials (B*ceil(T/64), ldy, 2)
+    ldy = _round_up(cout, 8)
+    ws = torch.empty(ldy * (B * T + 2 * B * -(-T // BOX)), dtype=torch.float32, device=x.device)
     err = _lib().conv1x3_instnorm_lrelu(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), B, T,
+        x.data_ptr(), w.data_ptr(), None, ws.data_ptr(), out.data_ptr(), B, T,
         cin_p, cout, cout_p, _KERNEL_DTYPES[x.dtype], eps, slope,
         torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
+    if err > 0:
         raise RuntimeError(f"conv1x3_instnorm_lrelu launch failed with cudaError {err}")
+    if err < 0:
+        raise RuntimeError(f"conv1x3_instnorm_lrelu: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {-err}")
     LAUNCHES["conv1x3_instnorm_lrelu"] += 1
     return out
 

@@ -13,9 +13,11 @@ Per shape it prints the kernel's time, its plain version's, the cuDNN
 composite's (``F.conv1d`` -> ``F.instance_norm`` -> ``F.leaky_relu`` on
 (B, C, T) tensors, as the port's model runs the block), the composite's
 time over the kernel's, the kernel's max abs error against its plain
-version, and the share of its bound that the kernel reaches (bound: the
-larger of the function's bytes over the HBM rate and its FLOPs over the
-tensor cores' bfloat16 or the float32 rate; H100 SXM data-sheet rates).
+version, the CTAs its GEMM launches (``fused_conv.gemm_ctas``; an H100
+SXM has 132 SMs, one CTA each), and the share of its bound that the
+kernel reaches (bound: the larger of the function's bytes over the HBM
+rate and its FLOPs over the tensor cores' bfloat16 or the float32 rate;
+H100 SXM data-sheet rates).
 Times are CUDA-event means over back-to-back launches. It needs a card.
 """
 from __future__ import annotations
@@ -116,15 +118,16 @@ def measure(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> dict:
         plain_ms=cuda_ms(lambda: fc.conv1x3_instnorm_lrelu_reference(x, w, b),
                          max(2, n // 4), warmup=1),
         library_ms=cuda_ms(lambda: cudnn_composite(x_nct, w_oik, b_lib), n),
-        max_abs_err=err, bound_ms=bound[0], bound_by=bound[1])
+        max_abs_err=err, bound_ms=bound[0], bound_by=bound[1],
+        ctas=fc.gemm_ctas(B, T, cout, x.dtype))
 
 
 def row_line(tag: str, r: dict) -> str:
     return (f"{tag}: kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
             f"cuDNN composite {r['library_ms']:.4f} ms | cuDNN/kernel "
             f"{r['library_ms'] / r['ms']:.2f}x | maxerr {r['max_abs_err']:.4g} | "
-            f"{100 * r['bound_ms'] / r['ms']:.1f} % of bound {r['bound_ms'] * 1e3:.1f} us "
-            f"({r['bound_by']})")
+            f"{r['ctas']} CTAs | {100 * r['bound_ms'] / r['ms']:.1f} % of bound "
+            f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
 
 
 def weighted_total(blocks, rows: dict) -> dict:

@@ -183,3 +183,7 @@ class TestContract:
         assert by == "operations"
         assert ms == pytest.approx((194_783_477_760 / 989e12 + 8 * 16 * 860 * 1536 / 67e12) * 1e3)
         assert bench_fused_conv.bound_ms(16, 860, 64, 64, torch.bfloat16)[1] == "bytes"
+        line = bench_fused_conv.row_line("audio L0", dict(
+            ms=0.5, plain_ms=4.0, library_ms=0.7, max_abs_err=0.01, bound_ms=0.134,
+            bound_by="operations", ctas=672))
+        assert "cuDNN/kernel 1.40x" in line and "| 672 CTAs |" in line

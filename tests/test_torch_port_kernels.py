@@ -17,10 +17,17 @@ from ml_music_style_transfer_tpu_torch.ops.kernels import fused_conv as tfc
 from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue as tglue
 
 N_FFT, HOP = 2048, 256
-# (B, T, Cin, Cout): the JAX test's shape; Cin = 1025 (audio_down_0.conv1's
-# unaligned rows) at T = 53; Cin and Cout off the 8-element bf16 alignment;
-# everything ragged and smaller than a tile
-CONV_SHAPES = [(3, 64, 96, 160), (2, 53, 1025, 136), (5, 40, 130, 72), (2, 7, 5, 3)]
+# (B, T, Cin, Cout): the JAX test's shape (T = 64, one box exactly full; its
+# first CTA holds items 0 and 1); Cin = 1025 (audio_down_0.conv1's unaligned
+# rows) at T = 53; Cin and Cout off the 8-element bf16 alignment; everything
+# ragged and smaller than a tile; T = 65 (one row over a box); three boxes an
+# item, so the second CTA holds item 0's ragged last box and item 1's first;
+# Cout = 64 (the narrow N tile) with Cin = 1025; 264 boxes by 512 channels
+# and 16 items of T = 53 by 6144 channels, grids for which a 132-SM card
+# picks the 256- and the 192-wide tile (the small shapes take the 128-wide)
+CONV_SHAPES = [(3, 64, 96, 160), (2, 53, 1025, 136), (5, 40, 130, 72), (2, 7, 5, 3),
+               (3, 65, 64, 192), (2, 130, 128, 96), (2, 107, 1025, 64), (2, 8448, 64, 512),
+               (16, 53, 64, 6144)]
 
 
 def _glue_consts(nf, device="cpu"):
@@ -108,6 +115,49 @@ def _conv_inputs(shape, dtype, device="cpu", seed=0):
     return x.to(device, dtype), w.to(device, dtype), b.to(device)
 
 
+class TestBoxedStatistics:
+    """``instnorm_stats_boxed`` (the kernel's reduction: 64-row box partials,
+    then Chan's merge) against ``torch.var_mean`` over T, with a channel
+    whose |mean| is 1e4 times its std and a constant channel."""
+
+    @staticmethod
+    def _y(T, dtype):
+        rng = np.random.default_rng(T)
+        y = rng.standard_normal((2, T, 5))
+        y[:, :, 1] = 1e4 + y[:, :, 1]  # |mean| = 1e4 std
+        y[:, :, 2] = 0.75  # constant: var 0
+        y[:, :, 3] *= 1e-3
+        return torch.from_numpy(y).to(dtype)
+
+    @pytest.mark.parametrize("T", [1, 53, 64, 65, 107, 860])
+    def test_float64_matches_var_mean(self, T):
+        """1e-6 relative (of |mean| + std for the mean, of var for var)."""
+        y = self._y(T, torch.float64)
+        mean, var = tfc.instnorm_stats_boxed(y)
+        var_ref, mean_ref = torch.var_mean(y, dim=1, correction=0)
+        scale = mean_ref.abs() + var_ref.sqrt()
+        assert bool(((mean - mean_ref).abs() <= 1e-6 * scale).all())
+        assert bool(((var - var_ref).abs() <= 1e-6 * var_ref + 1e-300).all())
+        assert bool((var[:, 2] == 0).all())
+
+    @pytest.mark.parametrize("T", [1, 53, 64, 65, 107, 860])
+    def test_float32_as_close_as_the_two_pass_reference(self, T):
+        """In float32, against the float64 statistics of the same values:
+        the boxed merge stays within the tolerance that the two-pass
+        statistics of ``conv1x3_instnorm_lrelu_reference`` meet (mean 1e-6
+        of |mean| + std, var 1e-4 relative), and the constant channel's
+        variance is exactly 0."""
+        y = self._y(T, torch.float32)
+        var_ref, mean_ref = torch.var_mean(y.double(), dim=1, correction=0)
+        scale = mean_ref.abs() + var_ref.sqrt()
+        two_mean = y.mean(dim=1, keepdim=True)
+        two_var = ((y - two_mean) ** 2).mean(dim=1)
+        for mean, var in (tfc.instnorm_stats_boxed(y), (two_mean[:, 0], two_var)):
+            assert bool(((mean.double() - mean_ref).abs() <= 1e-6 * scale).all())
+            assert bool(((var.double() - var_ref).abs() <= 1e-4 * var_ref + 1e-30).all())
+        assert bool((tfc.instnorm_stats_boxed(y)[1][:, 2] == 0).all())
+
+
 class TestFusedConvWrapper:
     def test_cpu_runs_plain_version_and_counts_no_launch(self):
         tfc.reset_launches()
@@ -170,6 +220,19 @@ class TestFusedConvOnCard:
             assert bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all())
         else:
             assert float((got - want).abs().max()) <= 2e-4
+
+    def test_large_channel_offset_merges_without_cancellation(self):
+        """x + 50: every channel of y carries a large offset against its
+        spread over T, which a sum / sum-of-squares variance would cancel;
+        T = 860 merges 14 boxes. Same bf16 tolerance as above."""
+        _need_card()
+        x, w, b = _conv_inputs((2, 860, 256, 192), torch.float32, seed=4)
+        x, w, b = (x + 50.0).to("cuda", torch.bfloat16), w.to("cuda", torch.bfloat16), b.cuda()
+        got = tfc.conv1x3_instnorm_lrelu(x, w, b).float()
+        want = tfc.conv1x3_instnorm_lrelu_reference(x, w, b).float()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= 2.0**-7 * want.abs() + 1e-3).all())
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     def test_constant_channels_give_zero_and_unaligned_input_is_copied(self, dtype):
