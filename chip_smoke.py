@@ -26,14 +26,39 @@ scipy and the standard library. Phases, each reported on its own lines:
   5. profile: the Griffin-Lim loop's wall time per iteration, device time
      by kernel (torch.profiler) and device busy share on the warm
      request's spectrogram;
-  6. dropout kernel vs plain: at the ten shapes the five DenseConcats give
+  6. whole clip: ``synthesize_whole_clip`` (one forward over the whole
+     clip) of a 30 s and a 180 s MIDI with a 30 s timbre clip, cold and
+     warm: waveform of t_out * 256 samples, finite, 300 launches of each
+     glue kernel per run; warm seconds and peak memory; then, at each
+     clip's Griffin-Lim frame count (5160 and 31,390), the glue kernels
+     against their plain versions as in phase 3, and Griffin-Lim through
+     the kernels against the plain path (8 iterations, within 1e-3 of the
+     peak) on the clip's predicted spectrogram;
+  7. batch: ``batch_synthesize_waveforms`` of two 10 s requests and a
+     malformed MIDI, which must fail alone; each good waveform within 1e-4
+     of its request through ``synthesize_waveform``; 600 launches; then
+     Griffin-Lim of a 10 s clip and ``bulk_griffinlim`` of two, timed;
+  8. daemon: ``serve_loop`` in this process over 6 requests of 10 s, a
+     ``batch`` of two and a ``whole_clip`` request (depth 2; all ok, in
+     order, 2700 launches), then the 6 requests serial and pipelined
+     (requests/s and their ratio, recorded, not gated); then the async
+     seams: a 21 MB upload through ``_stage`` behind about 1 s of queued
+     work must return while that work runs (a pageable copy beside it), a
+     30 s request's ``fetch()`` must not wait for about 1 s of work queued
+     after it, and the host's lead over the card in launches;
+  9. dft: Griffin-Lim 300 with ``transform="dft"`` (300 launches) and
+     "fft" from one phase at 5160 frames, spectral convergence of each
+     (dft may exceed fft by at most 0.01), the loop's time per iteration
+     for each; ``log_power_stft`` dft vs fft at the conditioning shape
+     (max abs error <= 1e-3 in log space) and their times;
+  10. dropout kernel vs plain: at the ten shapes the five DenseConcats give
      it at batch 16 in bfloat16, and one in float32, ``dropout_mask`` and
      ``dropout_apply`` must be bit-equal to their plain versions; keep
      fraction, seed/call-index determinism, the extreme rates' clamped
      thresholds and the backward of ``DropoutFunction``; the kernel's time
      at (16, 384, 860) beside its plain version's, ``F.dropout``'s and its
      bound;
-  7. training path: ``Trainer`` at full width and batch 16 on seeded
+  11. training path: ``Trainer`` at full width and batch 16 on seeded
      synthetic chunks (``ChunkDataset.from_arrays``): ``train_epoch`` (2
      steps), 10 steps on one repeated batch (finite, falling loss) and
      ``evaluate`` over a padded last batch; exactly 10 forward and 10
@@ -41,7 +66,7 @@ scipy and the standard library. Phases, each reported on its own lines:
      time, frames/s, peak memory and a profile of the top device
      operations. Neither serving nor training may launch the fused conv
      kernel (the model keeps cuDNN's conv, as the JAX model keeps XLA's);
-  8. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
+  12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
      InstanceNorm -> LeakyReLU blocks (``model_layer_shapes`` at batch 16,
@@ -53,8 +78,11 @@ scipy and the standard library. Phases, each reported on its own lines:
      and its bound, the CTAs its GEMM launches and the composite's time over
      the kernel's; the launch-weighted totals and ratio over the 64 blocks.
 
-The line before the last is the card's name and power limit, the one
-before it the kernels' JSON record; the last line is
+Lines starting ``metric`` carry the serving system's numbers under the
+names ``scripts/bench_inference.py`` prints. The glue kernels' ``launches``
+in the kernels' JSON record sum their counts over phases 4 and 6-9. The
+line before the last is the card's name and power limit, the one before it
+the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
 without a card the script exits non-zero before printing any result.
 """
@@ -83,6 +111,8 @@ SPIN_CYCLES = 100_000_000  # about 50 ms at the H100's 1.98 GHz boost clock
 N_ITER = 300
 REQUESTS = ((10.0, 6.0), (30.0, 30.0), (30.0, 27.5))  # (MIDI s, timbre WAV s)
 GL_BUCKET = 430  # Griffin-Lim runs over the MIDI's frames rounded up to half a chunk
+WHOLE_CLIP_SECONDS = (30.0, 180.0)
+ASYNC_SECONDS = 30.0  # MIDI length of the async probe's request
 
 
 def fail(msg: str) -> None:
@@ -93,13 +123,6 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, n: int = 50, warmup: int = 5) -> float:
@@ -143,45 +166,54 @@ def bound_ms(n_bytes: float, n_flops: float, n_int_ops: float = 0.0,
 
 # ---- phase 3: kernels vs plain ---------------------------------------------
 
+def glue_vs_plain(torch, glue, tstft, nf: int, errs: dict):
+    """The glue kernels against their plain versions on seeded frames at
+    ``nf`` frames (max abs error <= 1e-4, folded into ``errs``), and
+    rfft(glue(irfft S)) against stft(istft S) (<= 1e-3). Returns the
+    inputs for timing."""
+    n_fft, hop = 2048, 256
+    gen = torch.Generator().manual_seed(nf)
+    frames = torch.randn((nf, n_fft), generator=gen).cuda()
+    window = torch.from_numpy(tstft.window_const(n_fft, n_fft)).cuda()
+    inv = torch.from_numpy(tstft.wss_inv_const(n_fft, n_fft, hop, nf).reshape(
+        nf + 7, hop)).cuda()
+    # kernels first: no plain result can sit in a freed block they reuse
+    y_kern = glue.ola_nola(frames, window, inv)
+    g_full = glue.gl_consistency_frames(frames, window, inv)
+    y_plain = glue.ola_nola_reference(frames, window, inv)
+    g_kern = glue.frame_window(y_plain, window, nf)
+    g_plain = glue.frame_window_reference(y_plain, window, nf)
+    full_err = float((g_full - glue.gl_consistency_frames_reference(
+        frames, window, inv)).abs().max())
+    torch.cuda.synchronize()
+    e_ola = float((y_kern - y_plain).abs().max())
+    e_frame = float((g_kern - g_plain).abs().max())
+    errs["gl_ola_nola"] = max(errs["gl_ola_nola"], e_ola)
+    errs["gl_frame_window"] = max(errs["gl_frame_window"], e_frame)
+    print(f"kernel nf={nf}: max_abs_err gl_ola_nola={e_ola:.3e} "
+          f"gl_frame_window={e_frame:.3e} glue={full_err:.3e} (tolerance 1e-4)")
+    check(max(e_ola, e_frame, full_err) <= 1e-4, f"glue kernel disagrees at nf={nf}")
+
+    # rfft(glue(irfft S)) == stft(istft S), the consistency it stands for
+    S = torch.complex(torch.randn((1025, nf), generator=gen),
+                      torch.randn((1025, nf), generator=gen)).cuda()
+    want = tstft.stft(tstft.istft(S, hop), n_fft, hop)
+    F = torch.fft.irfft(S.transpose(0, 1).contiguous(), n=n_fft, dim=-1)
+    got = torch.fft.rfft(glue.gl_consistency_frames(F, window, inv), dim=-1).transpose(0, 1)
+    st_err = float((got - want).abs().max())
+    print(f"kernel nf={nf}: rfft(glue(irfft S)) vs stft(istft S) max_abs_err={st_err:.3e} "
+          "(tolerance 1e-3 abs + 1e-3 rel)")
+    check(bool(torch.allclose(got, want, atol=1e-3, rtol=1e-3)),
+          f"glue breaks stft/istft consistency at nf={nf}")
+    return frames, window, inv, y_plain
+
+
 def kernel_phase(torch, glue, tstft):
     n_fft, hop = 2048, 256
     errs = {"gl_ola_nola": 0.0, "gl_frame_window": 0.0}
     timing = {}
     for nf in (100, 5160):
-        gen = torch.Generator().manual_seed(nf)
-        frames = torch.randn((nf, n_fft), generator=gen).cuda()
-        window = torch.from_numpy(tstft.window_const(n_fft, n_fft)).cuda()
-        inv = torch.from_numpy(tstft.wss_inv_const(n_fft, n_fft, hop, nf).reshape(
-            nf + 7, hop)).cuda()
-        # kernels first: no plain result can sit in a freed block they reuse
-        y_kern = glue.ola_nola(frames, window, inv)
-        g_full = glue.gl_consistency_frames(frames, window, inv)
-        y_plain = glue.ola_nola_reference(frames, window, inv)
-        g_kern = glue.frame_window(y_plain, window, nf)
-        g_plain = glue.frame_window_reference(y_plain, window, nf)
-        full_err = float((g_full - glue.gl_consistency_frames_reference(
-            frames, window, inv)).abs().max())
-        torch.cuda.synchronize()
-        e_ola = float((y_kern - y_plain).abs().max())
-        e_frame = float((g_kern - g_plain).abs().max())
-        errs["gl_ola_nola"] = max(errs["gl_ola_nola"], e_ola)
-        errs["gl_frame_window"] = max(errs["gl_frame_window"], e_frame)
-        print(f"kernel nf={nf}: max_abs_err gl_ola_nola={e_ola:.3e} "
-              f"gl_frame_window={e_frame:.3e} glue={full_err:.3e} (tolerance 1e-4)")
-        check(max(e_ola, e_frame, full_err) <= 1e-4, f"glue kernel disagrees at nf={nf}")
-
-        # rfft(glue(irfft S)) == stft(istft S), the consistency it stands for
-        S = torch.complex(torch.randn((1025, nf), generator=gen),
-                          torch.randn((1025, nf), generator=gen)).cuda()
-        want = tstft.stft(tstft.istft(S, hop), n_fft, hop)
-        F = torch.fft.irfft(S.transpose(0, 1).contiguous(), n=n_fft, dim=-1)
-        got = torch.fft.rfft(glue.gl_consistency_frames(F, window, inv), dim=-1).transpose(0, 1)
-        st_err = float((got - want).abs().max())
-        print(f"kernel nf={nf}: rfft(glue(irfft S)) vs stft(istft S) max_abs_err={st_err:.3e} "
-              "(tolerance 1e-3 abs + 1e-3 rel)")
-        check(bool(torch.allclose(got, want, atol=1e-3, rtol=1e-3)),
-              f"glue breaks stft/istft consistency at nf={nf}")
-
+        frames, window, inv, y_plain = glue_vs_plain(torch, glue, tstft, nf, errs)
         if nf == 5160:  # the 30 s serving shape: time kernels and plain versions
             f4 = 4
             ola_bytes = f4 * (nf * n_fft + n_fft + 2 * (nf + 7) * hop)
@@ -239,7 +271,7 @@ def render(notes, duration: float, sr: int = 44100) -> np.ndarray:
     return (0.5 * y / np.abs(y).max()).astype(np.float32)
 
 
-def main_path(torch, glue, dk, tmp):
+def main_path(torch, glue, dk, binf, tmp):
     from ml_music_style_transfer_tpu_torch.config import ModelConfig
     from ml_music_style_transfer_tpu_torch.data.audio_io import read_wav, write_wav
     from ml_music_style_transfer_tpu_torch.infer import AudioSynthesizer
@@ -324,6 +356,8 @@ def main_path(torch, glue, dk, tmp):
         last = synth
     launches = dict(glue.LAUNCHES)
     print(f"launches on the serving path: {launches} dropout {dict(dk.LAUNCHES)}")
+    print(binf.metric_line("serving_s_per_30s_clip", total, "s", torch.device("cuda"),
+                           midi_s=REQUESTS[-1][0], n_iter=N_ITER, request="3 (warm)"))
     for k, v in launches.items():
         check(v == N_ITER * len(REQUESTS), f"{k}: {v} launches on the serving path")
     check(not any(dk.LAUNCHES.values()), "serving launched the dropout kernel")
@@ -342,7 +376,7 @@ def main_path(torch, glue, dk, tmp):
     print(f"griffinlim kernel vs plain path (8 iters, {mag.shape[1]} frames): "
           f"max_abs_err/peak={gl_err:.3e} (tolerance 1e-3)")
     check(gl_err <= 1e-3, "Griffin-Lim through the kernels disagrees with the plain path")
-    return launches, last
+    return launches, last, state
 
 
 # ---- phase 5: where the Griffin-Lim time goes ------------------------------
@@ -386,7 +420,270 @@ def profile_phase(torch, synth, n_iter: int = 100) -> None:
         print(f"profile: {us:8.1f} us/iter {100 * us / device_us:5.1f} % {key[:100]}")
 
 
-# ---- phase 6: dropout kernel vs plain --------------------------------------
+# ---- phases 6-9: the serving system ----------------------------------------
+
+def counted(glue, per_kernel: int, what: str) -> int:
+    """Read the glue kernels' counts right after a path's run (they were set
+    to 0 just before it); each must equal ``per_kernel``."""
+    got = dict(glue.LAUNCHES)
+    for k, v in got.items():
+        check(v == per_kernel, f"{what}: {k} launched {v} times, expected {per_kernel}")
+    return per_kernel
+
+
+def midi_frames(path: str) -> int:
+    from ml_music_style_transfer_tpu_torch.midi import parser as midi_parser
+    from ml_music_style_transfer_tpu_torch.midi import pianoroll as pr
+
+    return pr.vectorize_notes(midi_parser.load(path).notes, 172)[0].shape[0]
+
+
+def whole_clip_phase(torch, glue, tstft, binf, make_synth, tmp, errs: dict) -> int:
+    """``synthesize_whole_clip`` on a 30 s and a 180 s MIDI (30 s timbre
+    clip): one forward over the whole clip, Griffin-Lim over its frames;
+    cold then warm, 300 launches of each glue kernel per run. Then, at each
+    clip's Griffin-Lim frame count, the glue kernels against their plain
+    versions and Griffin-Lim (8 iterations) through the kernels against the
+    plain path on the clip's predicted spectrogram."""
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+    from ml_music_style_transfer_tpu_torch.parallel import time_shard as tsh
+
+    n = 0
+    for midi_s in WHOLE_CLIP_SECONDS:
+        midi, wav = binf.make_clip(tmp, f"whole{int(midi_s)}", midi_s, 20 + int(midi_s),
+                                   timbre_seconds=30.0)
+        t_total = midi_frames(midi)
+        t_out = tsh.time_sharded_output_length(t_total)
+        synth = make_synth(midi, wav)
+        times = []
+        for run in ("cold", "warm"):
+            glue.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = synth.synthesize_whole_clip(n_iter=N_ITER)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            n += counted(glue, N_ITER, f"whole clip {midi_s:.0f} s ({run})")
+            check(y.shape == (t_out * 256,), f"whole clip {midi_s:.0f} s: length {y.shape}")
+            check(bool(np.isfinite(y).all()) and float(np.abs(y).max()) > 0.0,
+                  f"whole clip {midi_s:.0f} s: waveform not finite or all zero")
+        gl_frames = -(-t_out // GL_BUCKET) * GL_BUCKET
+        print(f"whole clip midi={midi_s:.0f}s t_total={t_total} t_out={t_out} "
+              f"gl_frames={gl_frames} cold_s={times[0]:.4f} "
+              f"warm_s={times[1]:.4f} max_memory_allocated_GB="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        if midi_s == 30.0:
+            print(binf.metric_line("whole_clip_s_per_30s_clip", times[1], "s",
+                                   torch.device("cuda"), midi_s=midi_s, n_iter=N_ITER))
+
+        # the kernels at this path's shape (not counted above)
+        glue_vs_plain(torch, glue, tstft, gl_frames, errs)
+        spec, _ = synth._predict_whole_clip_device()
+        mag = torch.sqrt(torch.expm1(torch.clamp(spec.transpose(0, 1), 0.0, 20.0)))
+        phase = 2 * np.pi * torch.rand(mag.shape, generator=torch.Generator().manual_seed(4))
+        with torch.inference_mode():
+            a = tgl.griffinlim(mag, n_iter=8, init_phase=phase, device="cuda")
+            b = tgl.griffinlim(mag, n_iter=8, init_phase=phase, use_pallas_glue=False,
+                               device="cuda")
+        gl_err = float((a - b).abs().max() / b.abs().max())
+        print(f"whole clip midi={midi_s:.0f}s: griffinlim kernel vs plain path (8 iters, "
+              f"{mag.shape[1]} frames): max_abs_err/peak={gl_err:.3e} (tolerance 1e-3)")
+        check(mag.shape[1] == gl_frames and gl_err <= 1e-3,
+              f"whole clip {midi_s:.0f} s: Griffin-Lim through the kernels disagrees")
+        del spec, mag, phase, a, b
+    return n
+
+
+def batch_phase(torch, glue, binf, make_synth, tmp) -> int:
+    """Three requests through ``batch_synthesize_waveforms``: two 10 s
+    songs and a malformed MIDI, which must come back
+    as an error alone; each good waveform within 1e-4 of the same request
+    through ``synthesize_waveform``. Then Griffin-Lim of a 10 s clip alone
+    and ``bulk_griffinlim`` of the two, timed."""
+    from ml_music_style_transfer_tpu_torch.infer import bulk
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+
+    clips = [binf.make_clip(tmp, f"batch{i}", 10.0, 30 + i) for i in range(2)]
+    bad = os.path.join(tmp, "malformed.mid")
+    with open(bad, "wb") as f:
+        f.write(b"MThd this is not a MIDI file")
+    synths = [make_synth(*clips[0]), make_synth(bad, clips[0][1]), make_synth(*clips[1])]
+    glue.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    wavs, errors = bulk.batch_synthesize_waveforms(synths, n_iter=N_ITER)
+    dt = time.perf_counter() - t
+    n = counted(glue, 2 * N_ITER, "batch of 3 (one malformed)")
+    print(f"batch: 3 requests in {dt:.4f} s, errors {errors}")
+    check(errors[0] is None and errors[2] is None, f"batch: a good request failed: {errors}")
+    check(errors[1] is not None and wavs[1] is None, "batch: the malformed request was not isolated")
+    for i in (0, 2):
+        want = synths[i].synthesize_waveform(n_iter=N_ITER)
+        err = float(np.abs(wavs[i] - want).max())
+        print(f"batch request {i + 1}: {len(wavs[i])} samples, max_abs_err vs single request "
+              f"{err:.3e} (tolerance 1e-4)")
+        check(wavs[i].shape == want.shape and err <= 1e-4,
+              f"batch request {i + 1} differs from its single request")
+
+    specs = []
+    for s in (synths[0], synths[2]):
+        spec, t_total = s._predict_device(s.midi_source, s.audio_source)
+        specs.append(spec[: s.gl_frames(spec, t_total)].transpose(0, 1))
+    specs = torch.stack(specs)
+    dev = torch.device("cuda")
+
+    def one():
+        with torch.inference_mode():
+            tgl.griffinlim_from_log_power(specs[0], n_iter=N_ITER, device=dev).cpu()
+
+    def both():
+        bulk.bulk_griffinlim(specs, [0, 1], n_iter=N_ITER, device=dev).cpu()
+
+    print(binf.metric_line("griffinlim_s_per_10s_clip", binf.best_seconds(one, dev), "s", dev,
+                           frames=specs.shape[-1], n_iter=N_ITER))
+    print(binf.metric_line("batch_griffinlim_s_per_clip", binf.best_seconds(both, dev) / 2, "s",
+                           dev, clips=2, frames=specs.shape[-1], n_iter=N_ITER))
+    return n
+
+
+def daemon_phase(torch, glue, binf, make_synth, tmp) -> int:
+    """``serve_loop`` in this process: 6 requests of 10 s, a ``batch`` of
+    two and a ``whole_clip`` request at depth 2, all answered in order with
+    ok; then the 6 single requests serial (depth 0) and pipelined (depth 2),
+    timed; then the async seams: a 21 MB upload through ``_stage`` behind
+    about 1 s of queued work must return while that work runs (a pageable
+    copy is timed beside it); a 30 s request's ``fetch()`` must return while
+    about 1 s of work queued after the request still runs (its call's
+    return time and whether its work was pending then are printed); and
+    the number of launches the host can queue ahead of the card."""
+    clips = [binf.make_clip(tmp, f"daemon{i}", 10.0, 40 + i) for i in range(6)]
+    singles = [{"midi": m, "audio": w, "out": os.path.join(tmp, f"daemon{i}.wav"),
+                "n_iter": N_ITER} for i, (m, w) in enumerate(clips)]
+    mixed = singles + [
+        {"batch": [{"midi": m, "audio": w, "out": os.path.join(tmp, f"daemon_b{i}.wav")}
+                   for i, (m, w) in enumerate(clips[:2])], "n_iter": N_ITER},
+        {"midi": clips[2][0], "audio": clips[2][1], "out": os.path.join(tmp, "daemon_w.wav"),
+         "n_iter": N_ITER, "whole_clip": True}]
+    glue.reset_launches()
+    _, resps = binf.daemon_seconds(make_synth, mixed, 2)
+    n = counted(glue, 9 * N_ITER, "daemon, 6 requests + batch of 2 + whole clip")
+    outs = [r.get("out") for r in resps[:6]] + [None, resps[7].get("out")]
+    check(len(resps) == 8 and all(r["ok"] for r in resps)
+          and all(r["ok"] for r in resps[6]["batch"]), f"daemon: a request failed: {resps}")
+    check(outs[:6] == [r["out"] for r in singles] and outs[7] == mixed[7]["out"],
+          "daemon: responses out of order")
+    rps = {}
+    for depth in (0, 2):
+        glue.reset_launches()
+        dt, resps = binf.daemon_seconds(make_synth, singles, depth)
+        n += counted(glue, 6 * N_ITER, f"daemon, 6 requests at depth {depth}")
+        check(all(r["ok"] for r in resps), f"daemon depth {depth}: {resps}")
+        rps[depth] = 6 / dt
+    dev = torch.device("cuda")
+    print(binf.metric_line("daemon_requests_per_s_serial", rps[0], "requests/s", dev, requests=6,
+                           midi_s=10.0))
+    print(binf.metric_line("daemon_requests_per_s_pipelined", rps[2], "requests/s", dev,
+                           requests=6, midi_s=10.0,
+                           pipelined_over_serial=round(rps[2] / rps[0], 4)))
+
+    # the serving seam's uploads do not wait for earlier work on the card
+    # (a plain pageable copy does), and a request's fetch() waits for that
+    # request only; how far ahead the host can run is bounded by the card's
+    # queue of pending launches, measured last
+    stage = binf.staging_probe(dev)
+    print("async: 21 MB upload behind ~1 s of queued work: " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in stage.items()))
+    check(stage["staged_returned_while_earlier_work_ran"],
+          "the serving upload seam waited for earlier work on the card")
+    synth = make_synth(*binf.make_clip(tmp, "async", ASYNC_SECONDS, 50))
+    glue.reset_launches()
+    probe = binf.async_probe(synth, N_ITER)
+    n += counted(glue, N_ITER, "async probe")
+    print(f"async: synthesize_waveform_async of a {ASYNC_SECONDS:.0f} s request returned after "
+          f"{probe['return_s']:.4f} s, its work pending then: {probe['pending_at_return']}; "
+          f"fetch() with ~1 s of later work queued returned after {probe['fetch_s']:.4f} s, "
+          f"the later work still running: {probe['later_work_running_at_fetch']}")
+    check(probe["later_work_running_at_fetch"], "fetch() waited for work queued after its request")
+    ahead = binf.launch_queue_probe(dev)
+    print(f"async: behind ~1 s of queued work the host queued {ahead} tiny kernels before a "
+          "launch blocked (the card's queue of pending launches)")
+    return n
+
+
+def spectral_convergence(torch, tstft, wav, mag) -> float:
+    """|| |STFT(wav)| - mag ||_F / || mag ||_F over mag's frames."""
+    got = tstft.stft(wav, 2048, 256).abs()[:, : mag.shape[1]]
+    return float(torch.linalg.norm(got - mag) / torch.linalg.norm(mag))
+
+
+def dft_phase(torch, glue, tstft, binf, synth, tmp) -> int:
+    """``transform="dft"`` against "fft" at 5160 frames (the warm 30 s
+    request's spectrogram): one Griffin-Lim of 300 iterations each from the
+    same phase (300 launches of each glue kernel for the dft run), their
+    spectral convergence, and the loop's time per iteration (fft, dft, dft,
+    fft); then ``log_power_stft`` dft against fft at the conditioning shape."""
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+
+    spec = synth.spec[: synth.gl_frames(synth.spec, synth.t_total)].transpose(0, 1)
+    mag = tstft.inverse_log_power(spec)
+    phase = 2 * np.pi * torch.rand(mag.shape, generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        glue.reset_launches()
+        w_dft = tgl.griffinlim(mag, n_iter=N_ITER, init_phase=phase, transform="dft", device="cuda")
+        torch.cuda.synchronize()
+        n = counted(glue, N_ITER, "griffinlim transform=dft")
+        w_fft = tgl.griffinlim(mag, n_iter=N_ITER, init_phase=phase, transform="fft", device="cuda")
+        sc = {"fft": spectral_convergence(torch, tstft, w_fft, mag),
+              "dft": spectral_convergence(torch, tstft, w_dft, mag)}
+    diff = sc["dft"] - sc["fft"]
+    print(f"dft: griffinlim 300 iters at {mag.shape[1]} frames, spectral convergence "
+          f"fft={sc['fft']:.5f} dft={sc['dft']:.5f} dft-fft={diff:+.5f} (tolerance +0.01)")
+    check(np.isfinite(w_dft.cpu().numpy()).all() and diff <= 0.01,
+          "transform=dft: Griffin-Lim worse than the FFT path beyond the tolerance")
+
+    carry = (torch.polar(torch.ones_like(phase), phase).cuda(),
+             torch.zeros(mag.shape, dtype=torch.complex64, device="cuda"))
+
+    def loop(transform: str, iters: int = 100) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tgl.gl_steps(mag, carry, iters, 256, 2048, transform=transform)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / iters * 1e6
+
+    with torch.inference_mode():
+        loop("fft", 2)
+        loop("dft", 2)
+        us = {"fft": [], "dft": []}
+        for tr in ("fft", "dft", "dft", "fft"):
+            us[tr].append(min(loop(tr) for _ in range(2)))
+    print(f"dft: griffinlim loop per iteration at {mag.shape[1]} frames (100 iters, best of 2, "
+          f"fft dft dft fft): fft_us={us['fft']} dft_us={us['dft']} "
+          f"dft/fft={min(us['dft']) / min(us['fft']):.3f}")
+
+    _, wav = binf.make_clip(tmp, "cond30", 30.0, 60)
+    from ml_music_style_transfer_tpu_torch.data.audio_io import read_wav
+
+    audio, _ = read_wav(wav)
+    half, bucket = 1024, GL_BUCKET
+    a = np.pad(audio, (half, half), mode="reflect")
+    n_valid = 1 + len(audio) // 256
+    target = (-(-n_valid // bucket) * bucket - 1) * 256 + 2048
+    a = torch.from_numpy(np.pad(a, (0, max(0, target - len(a))))[:target]).cuda()
+    lp = {tr: tstft.log_power_stft(a, 2048, 256, transform=tr, center=False)
+          for tr in ("fft", "dft")}
+    err = float((lp["dft"] - lp["fft"]).abs().max())
+    ms = {tr: cuda_ms(lambda tr=tr: tstft.log_power_stft(a, 2048, 256, transform=tr, center=False),
+                      n=20) for tr in ("fft", "dft")}
+    print(f"dft: log_power_stft at the conditioning shape {tuple(lp['fft'].shape)}: dft vs fft "
+          f"max_abs_err={err:.3e} in log space (tolerance 1e-3); fft_ms={ms['fft']:.4f} "
+          f"dft_ms={ms['dft']:.4f} (float32 matmul, no TF32)")
+    check(err <= 1e-3, "log_power_stft dft differs from fft beyond 1e-3")
+    return n
+
+
+# ---- phase 10: dropout kernel vs plain -------------------------------------
 
 DROPOUT_RATE = 0.2
 DROPOUT_SEED = 0x9E3779B97F4A7C15
@@ -487,7 +784,7 @@ def dropout_phase(torch, dk):
     return err, t
 
 
-# ---- phase 7: training path -------------------------------------------------
+# ---- phase 11: training path -------------------------------------------------
 
 def synthetic_chunks(n: int, seed: int, styles=("cuba", "upright")) -> dict:
     """Seeded preprocessed-dataset arrays: rolls in {0, 1}, onoff in
@@ -590,7 +887,7 @@ def train_phase(torch, dk, glue):
     return launches
 
 
-# ---- phase 8: fused conv kernel vs plain, and against cuDNN -----------------
+# ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
 
 FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
 # float32 checks: midi L0, up_3.conv1 (1280 -> 1024 @860) and audio L4
@@ -722,13 +1019,15 @@ def main() -> None:
     # float32 results are compared below: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
     from ml_music_style_transfer_tpu_torch.ops import stft as tstft
     from ml_music_style_transfer_tpu_torch.ops.kernels import _build
     from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
     from ml_music_style_transfer_tpu_torch.ops.kernels import fused_conv as fc
     from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue as glue
+    from ml_music_style_transfer_tpu_torch.scripts import bench_inference as binf
 
-    smi = smi_line()
+    smi = binf.smi_line()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}; "
@@ -744,9 +1043,23 @@ def main() -> None:
     errs, timing = kernel_phase(torch, glue, tstft)
     fc.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, warm = main_path(torch, glue, dk, tmp)
+        launches, warm, state = main_path(torch, glue, dk, binf, tmp)
         profile_phase(torch, warm)
-    del warm  # the serving model's 2.9 GB go back before training
+        cfg = warm.model_cfg
+
+        def make_synth(midi, wav):  # the serving cache's model for `state`
+            return synth_mod.AudioSynthesizer(tmp, midi, wav, model_cfg=cfg, params=state,
+                                              device="cuda")
+
+        gl_launches = sum(launches.values()) // 2
+        gl_launches += whole_clip_phase(torch, glue, tstft, binf, make_synth, tmp, errs)
+        gl_launches += batch_phase(torch, glue, binf, make_synth, tmp)
+        gl_launches += daemon_phase(torch, glue, binf, make_synth, tmp)
+        gl_launches += dft_phase(torch, glue, tstft, binf, warm, tmp)
+        print(f"launches of each glue kernel over the serving paths (tiled, whole clip, batch, "
+              f"daemon, dft): {gl_launches}")
+    del warm, state, make_synth  # the serving model's 2.9 GB go back before training
+    synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()
     check(not any(fc.LAUNCHES.values()), "serving launched the fused conv kernel")
@@ -766,7 +1079,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ml_music_style_transfer_tpu_torch/csrc/gl_glue.cu",
-            "replaces": src_line, "launches": launches[name],
+            "replaces": src_line, "launches": gl_launches,
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None})
     kernels.append({

@@ -17,16 +17,32 @@ waveform. The random Griffin-Lim phase comes from a ``torch.Generator``
 seeded 0, so the waveform differs from the JAX package's by design.
 Weights come from the experiment's best checkpoint: the port's own
 ``checkpoint-{epoch}.pt`` (written by ``train/loop.py``) or a reference
-``.tar``. Reading msgpack/orbax checkpoints, EMA weights, the whole-clip
-and time-sharded paths and the serving caches arrive in later slices.
+``.tar``, or from an in-memory state_dict.
+
+A serving process keeps its warm state at module level: ``_PARAMS_CACHE``
+holds the last two built, on-device, eval-mode models, so a second
+synthesizer for the same checkpoint neither re-reads the file nor
+re-uploads the weights. ``synthesize_waveform_async`` only queues work on
+the card and returns a ``fetch()``; the daemon (``scripts/serve.py``)
+overlaps the host work of one request with the card's work on the one
+before. Every host<->device crossing of the serving path goes through
+``_stage``/``_fetch`` (``TRANSFER_LOG`` records them). The whole-clip path
+runs one forward over the whole clip (``parallel/time_shard.py``).
+Reading msgpack/orbax checkpoints, EMA weights and every multi-device
+option arrive in later slices.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import logging
 import os
+import threading
+from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..compat.weights import load_reference_checkpoint
 from ..config import DEFAULT_DSP, DSPConfig, ModelConfig
@@ -37,9 +53,129 @@ from ..midi import pianoroll as pr
 from ..models import PerformanceNet
 from ..ops import griffinlim as tgl
 from ..ops import stft as tstft
+from ..parallel import time_shard as tsh
 from ..train import checkpoint as ckpt
 
 EMA_ITEM = "ROADMAP queue 1 item 7 (optimizer options: EMA)"
+MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 9 (multi-device)"
+
+# ---- transfer seams -------------------------------------------------------
+# All serving host<->device crossings go through _stage/_fetch/_fetch_async.
+# Tests set TRANSFER_LOG to a list to record ("h2d"|"d2h", nbytes) per
+# crossing and assert that no spectrogram-sized tensor crosses.
+TRANSFER_LOG: list | None = None
+
+
+def _stage(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host -> device, the only upload seam of serving: through pinned
+    memory and a copy that does not wait for earlier work on the card."""
+    x = np.ascontiguousarray(x)
+    if TRANSFER_LOG is not None:
+        TRANSFER_LOG.append(("h2d", int(x.nbytes)))
+    return tstft.to_device(x, device)
+
+
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    """Device -> host, waiting for the result."""
+    return _fetch_async(x)()
+
+
+def _fetch_async(x: torch.Tensor) -> Callable[[], np.ndarray]:
+    """Queue the device -> host copy of ``x`` now; the returned ``fetch()``
+    waits for that copy only.
+
+    There is one stream: the copy and the event after it are queued behind
+    this request's work and the work of requests queued before it, never
+    behind later ones. So ``fetch()`` from another thread waits for its own
+    request (and those ahead of it, which a FIFO completer has already
+    waited for), while the caller goes on queueing the next request.
+    """
+    if TRANSFER_LOG is not None:
+        TRANSFER_LOG.append(("d2h", x.numel() * x.element_size()))
+    if x.device.type != "cuda":
+        out = x.numpy()
+        return lambda: out
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+
+    def fetch() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return fetch
+
+
+def _single_device(mesh, shard_gl=None) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= waits for {MULTI_DEVICE_ITEM}")
+    if shard_gl:
+        raise NotImplementedError(f"shard_gl=True waits for {MULTI_DEVICE_ITEM}")
+
+
+# ---- module-level serving caches -------------------------------------------
+# A serving process builds each model once: every AudioSynthesizer for the
+# same checkpoint (or the same in-memory state_dict) shares one on-device,
+# eval-mode PerformanceNet. Capped, so a long-lived daemon that outlives
+# checkpoint re-saves does not pin every generation's ~2.9 GB on the card.
+
+
+class _LRU:
+    def __init__(self, cap: int, name: str = ""):
+        self.cap = cap
+        self.name = name
+        self._d = collections.OrderedDict()
+
+    def get(self, key, default=None):
+        if key in self._d:
+            self._d.move_to_end(key)
+            return self._d[key]
+        return default
+
+    def put(self, key, value) -> None:
+        self._d[key] = value
+        self._d.move_to_end(key)
+        while len(self._d) > self.cap:
+            evicted, _ = self._d.popitem(last=False)
+            # a refill rebuilds and re-uploads a model: make thrash visible
+            logging.getLogger("mmst.serving").warning(
+                "%s cache evicted %r (cap=%d); raise the cap to avoid "
+                "re-upload thrash", self.name, evicted, self.cap)
+
+    def clear(self) -> None:
+        self._d.clear()
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+
+# key -> (source, model). Checkpoint keys are (abspath, use_ema, mtime,
+# model config, device): mtime so a re-saved checkpoint is not served
+# stale. In-memory keys carry id(params), and CPython reuses an id after
+# garbage collection, so the source rides in the value and a hit must be
+# the same object.
+_PARAMS_CACHE = _LRU(2, "params")
+# The daemon builds synthesizers from its reader and its completer thread:
+# one lock across lookup, build and put, so two misses on one key build
+# (and upload) the model once.
+_PARAMS_LOCK = threading.Lock()
+
+
+def clear_caches() -> None:
+    """Drop the cached models (their device memory goes back once no
+    synthesizer holds them)."""
+    _PARAMS_CACHE.clear()
+
+
+def _cached_model(key, source, build: Callable[[], PerformanceNet]) -> PerformanceNet:
+    with _PARAMS_LOCK:
+        entry = _PARAMS_CACHE.get(key)
+        if entry is not None and entry[0] is source:
+            return entry[1]
+        model = build()
+        _PARAMS_CACHE.put(key, (source, model))
+        return model
 
 
 def build_model(model_cfg: ModelConfig, state_dict, device) -> PerformanceNet:
@@ -93,30 +229,46 @@ class AudioSynthesizer:
         """``params``: a state_dict (torch tensors or numpy arrays, reference
         key names) to serve directly. Otherwise ``checkpoint_path`` (a port
         ``.pt`` or a reference ``.tar``), or the experiment's best
-        checkpoint (``train/checkpoint.best_checkpoint``). ``device``
-        defaults to the card and raises when there is none."""
+        checkpoint (``train/checkpoint.best_checkpoint``). The built model
+        comes from ``_PARAMS_CACHE`` when the same checkpoint (unchanged
+        mtime) or the same ``params`` object was served before; a reference
+        ``.tar`` forces ``compat_mbr_noop=True`` and ``self.model_cfg`` is
+        the config the model was built with. ``device`` defaults to the card
+        and raises when there is none."""
         self.device = resolve_device(device)
         self.exp_dir = exp_dir
         self.hp = hp
         self.midi_source = midi_source
         self.audio_source = audio_source
-        if params is None:
+        dev = self.device
+        if params is not None:
+            key = ("inmem", id(params), model_cfg, str(dev))
+            self.model = _cached_model(key, params,
+                                       lambda: build_model(model_cfg, params, dev))
+        else:
             if checkpoint_path is None:
                 checkpoint_path, _ = ckpt.best_checkpoint(exp_dir)
             if use_ema:
                 raise NotImplementedError(f"use_ema waits for {EMA_ITEM}")
-            if checkpoint_path.endswith(".tar"):
-                if not model_cfg.compat_mbr_noop:
-                    # the reference's MBR conv weights are untrained (model.py:172)
-                    print("note: reference .tar checkpoint — forcing "
-                          "compat_mbr_noop=True for output parity")
-                    model_cfg = dataclasses.replace(model_cfg, compat_mbr_noop=True)
-                params = load_reference_checkpoint(checkpoint_path, compat_mbr_noop=True)
-            else:
-                # a port-trained model, MBR blocks and all, served as trained
-                params = ckpt.restore_checkpoint(checkpoint_path)["params"]
-        self.model_cfg = model_cfg
-        self.model = build_model(model_cfg, params, self.device)
+            path = checkpoint_path
+            is_tar = path.endswith(".tar")
+            if is_tar and not model_cfg.compat_mbr_noop:
+                # the reference's MBR conv weights are untrained (model.py:172)
+                print("note: reference .tar checkpoint — forcing "
+                      "compat_mbr_noop=True for output parity")
+                model_cfg = dataclasses.replace(model_cfg, compat_mbr_noop=True)
+            cfg = model_cfg
+
+            def build() -> PerformanceNet:
+                if is_tar:
+                    state = load_reference_checkpoint(path, compat_mbr_noop=True)
+                else:  # a port-trained model, MBR blocks and all, served as trained
+                    state = ckpt.restore_checkpoint(path)["params"]
+                return build_model(cfg, state, dev)
+
+            key = (os.path.abspath(path), use_ema, os.path.getmtime(path), cfg, str(dev))
+            self.model = _cached_model(key, None, build)
+        self.model_cfg = self.model.cfg
 
     # ---- input processing (reference inference.py:37-71) ----------------
     def _chunk_midi(self, midi_path: str, overlap: bool):
@@ -171,8 +323,7 @@ class AudioSynthesizer:
         n_bucketed = -(-n_valid // bucket) * bucket
         target = (n_bucketed - 1) * hp.ws + hp.n_fft
         a = np.pad(a, (0, target - len(a))) if len(a) < target else a[:target]
-        spec = tstft.log_power_stft(torch.from_numpy(a).to(self.device),
-                                    hp.n_fft, hp.ws, center=False)
+        spec = tstft.log_power_stft(_stage(a, self.device), hp.n_fft, hp.ws, center=False)
         return spec.transpose(0, 1), n_valid
 
     def _cond_starts(self, starts, n_valid: int, cond_mode: str, win: int):
@@ -203,8 +354,8 @@ class AudioSynthesizer:
         cstarts = self._cond_starts(starts, n_valid, cond_mode, win)
         if cond_mode == "center":
             cstarts = cstarts[:1]
-        cond = _cond_tiles(spec_dev, torch.tensor(cstarts, device=self.device),
-                           n_valid, win).cpu().numpy()
+        cond = _fetch(_cond_tiles(spec_dev, _stage(np.asarray(cstarts, np.int64), self.device),
+                                  n_valid, win))
         if cond_mode == "center":
             cond = cond[0]
         return (roll_chunks.astype(np.float32), onoff_chunks.astype(np.float32),
@@ -240,11 +391,10 @@ class AudioSynthesizer:
         valid = [1.0] * n + [0.0] * pad_n
         l_out = max(starts) + win
         l_out = -(-l_out // (win // 2)) * (win // 2)  # output frame budget
-        cond = _cond_tiles(spec_dev, torch.tensor(cond_starts + [0] * pad_n,
-                                                  device=self.device), n_valid, win)
         dev = self.device
-        spec = self._forward_blend(torch.from_numpy(padn(roll_chunks)).to(dev),
-                                   torch.from_numpy(padn(onoff_chunks)).to(dev),
+        cond = _cond_tiles(spec_dev, _stage(np.asarray(cond_starts + [0] * pad_n, np.int64), dev),
+                           n_valid, win)
+        spec = self._forward_blend(_stage(padn(roll_chunks), dev), _stage(padn(onoff_chunks), dev),
                                    cond, starts, valid, t_total, l_out)
         return spec, t_total
 
@@ -257,12 +407,11 @@ class AudioSynthesizer:
 
         def padn(a, dtype):
             a = np.asarray(a, dtype)
-            return torch.from_numpy(
-                np.pad(a, ((0, pad_n),) + ((0, 0),) * (a.ndim - 1))).to(dev)
+            return _stage(np.pad(a, ((0, pad_n),) + ((0, 0),) * (a.ndim - 1)), dev)
 
         cond = np.asarray(cond, np.float32)
         if cond.ndim == 2:  # one chunk broadcast to all tiles (center mode)
-            cond_b = torch.from_numpy(cond).to(dev).expand(n + pad_n, *cond.shape)
+            cond_b = _stage(cond, dev).expand(n + pad_n, *cond.shape)
         else:  # per-tile aligned conditioning (N, 860, 1025)
             cond_b = padn(cond, np.float32)
         starts = getattr(self, "_chunk_starts", None) or [i * win for i in range(n)]
@@ -272,29 +421,134 @@ class AudioSynthesizer:
         l_out = -(-l_out // (win // 2)) * (win // 2)
         spec = self._forward_blend(padn(roll_chunks, np.int8), padn(onoff_chunks, np.int8),
                                    cond_b, starts, valid, t_total, l_out)
-        return spec[:t_total].cpu().numpy()
+        return _fetch(spec[:t_total])
 
     @torch.inference_mode()
-    def _griffinlim_device(self, spec: torch.Tensor, t_total: int, n_iter: int) -> torch.Tensor:
-        """(l_out, bins) predicted spec -> (t_total * ws,) device waveform.
-
-        GL runs over the true length rounded up to half a chunk, never over
-        the frames the tile bucketing padded in.
-        """
-        bucket = self.hp.windows_per_chunk // 2
-        t_gl = min(int(spec.shape[0]), -(-t_total // bucket) * bucket)
-        wav = tgl.griffinlim_from_log_power(
-            spec[:t_gl].transpose(0, 1), generator=torch.Generator().manual_seed(0),
+    def _gl_waveform(self, spec: torch.Tensor, n_iter: int, seed: int = 0) -> torch.Tensor:
+        """(frames, bins) log-power spec -> device waveform: Griffin-Lim
+        with the phase of ``torch.Generator().manual_seed(seed)``. The
+        (bins, frames) input is made contiguous, the layout a row of
+        ``bulk.bulk_griffinlim``'s batch has, so both give the same bits."""
+        return tgl.griffinlim_from_log_power(
+            spec.transpose(0, 1).contiguous(), generator=torch.Generator().manual_seed(seed),
             n_iter=n_iter, hop_length=self.hp.ws,
             clip_max=self.hp.clip_log_power_max, device=self.device)
+
+    def gl_frames(self, spec: torch.Tensor, t_total: int) -> int:
+        """Griffin-Lim's frame count: the true length rounded up to half a
+        chunk, never the frames the tile bucketing padded in."""
+        bucket = self.hp.windows_per_chunk // 2
+        return min(int(spec.shape[0]), -(-t_total // bucket) * bucket)
+
+    def _griffinlim_device(self, spec: torch.Tensor, t_total: int, n_iter: int,
+                           seed: int = 0) -> torch.Tensor:
+        """(l_out, bins) predicted spec -> (t_total * ws,) device waveform."""
+        wav = self._gl_waveform(spec[: self.gl_frames(spec, t_total)], n_iter, seed)
         return wav[: t_total * self.hp.ws]
+
+    # ---- whole-clip one-pass path ---------------------------------------
+    def _whole_clip_rolls(self, midi_path: str):
+        mf = midi_parser.load(midi_path)
+        if not mf.notes:
+            raise ValueError(f"{midi_path} contains no notes — nothing to synthesize")
+        return pr.vectorize_notes(mf.notes, self.hp.wps)
+
+    def process_whole_clip(self, midi_path: str, audio_path: str):
+        """Unchunked host-contract inputs for the one-pass forward: roll and
+        onoff (T, 128) and the centred cond spec (T, 1025) cyclically
+        extended or cut to the MIDI's frame count (the reference forwards
+        whole clips and needs both branches' lengths to agree,
+        model/inference.py:82-84)."""
+        hp = self.hp
+        roll, onoff = self._whole_clip_rolls(midi_path)
+        t_total = roll.shape[0]
+        audio, _ = audio_io.read_wav(audio_path, sr=hp.sr)
+        spec = _fetch(tstft.log_power_stft(_stage(audio.astype(np.float32), self.device),
+                                           hp.n_fft, hp.ws)).T
+        if spec.shape[0] < t_total:
+            spec = np.tile(spec, (-(-t_total // spec.shape[0]), 1))
+        return (roll.astype(np.float32), onoff.astype(np.float32),
+                np.ascontiguousarray(spec[:t_total], np.float32), t_total)
+
+    def predict_spectrogram_whole_clip(self, roll, onoff, cond_spec, t_total,
+                                       mesh=None) -> np.ndarray:
+        """One forward over the entire clip, the reference's inference
+        semantics (model/inference.py:82-84: no tiling, InstanceNorm
+        statistics spanning the clip); host arrays in, (t_out, bins) out,
+        t_out from the net's temporal ladder
+        (``time_shard.time_sharded_output_length``). Single device:
+        ``mesh`` must be None."""
+        _single_device(mesh)
+        dev = self.device
+
+        def up(a):
+            return _stage(np.asarray(a, np.float32)[None, :t_total], dev)
+
+        out = tsh.whole_clip_forward(self.model, up(roll), up(cond_spec), up(onoff))
+        return _fetch(out[0])
+
+    def _predict_whole_clip_device(self) -> tuple[torch.Tensor, int]:
+        """Device-resident one-pass forward: returns the (t_gl, bins) device
+        spec (t_out frames, zero log-power up to t_gl, t_out rounded up to
+        half a chunk) and t_out.
+
+        Uploads the waveform and the int8 rolls; the cond spec is the
+        bucketed device STFT gathered cyclically to the MIDI's frame count
+        on the card."""
+        hp, dev = self.hp, self.device
+        roll, onoff = self._whole_clip_rolls(self.midi_source)
+        t_total = roll.shape[0]
+        spec_dev, n_valid = self._cond_spec_device(self.audio_source)
+        cond = spec_dev[torch.arange(t_total, device=dev) % n_valid]
+        out = tsh.whole_clip_forward(self.model, _stage(roll[None].astype(np.int8), dev),
+                                     cond[None], _stage(onoff[None].astype(np.int8), dev))
+        t_out = out.shape[1]
+        bucket = hp.windows_per_chunk // 2
+        t_gl = -(-t_out // bucket) * bucket
+        return F.pad(out[0], (0, 0, 0, t_gl - t_out)), t_out
+
+    def synthesize_whole_clip(self, n_iter: int = 300, mesh=None,
+                              shard_gl: bool | None = None) -> np.ndarray:
+        """Device-resident whole-clip serving: one forward over the whole
+        clip, then Griffin-Lim over its t_out frames rounded up to half a
+        chunk (zero log-power past t_out), cut to t_out * ws samples; only
+        the waveform comes back. ``mesh`` must be None and ``shard_gl``
+        falsy (the time-sharded Griffin-Lim is multi-device)."""
+        _single_device(mesh, shard_gl)
+        spec, t_out = self._predict_whole_clip_device()
+        wav = self._gl_waveform(spec, n_iter)
+        return _fetch(wav[: t_out * self.hp.ws])
+
+    # ---- serving ----------------------------------------------------------
+    def synthesize_waveform_async(self, n_iter: int = 300, overlap: bool = True,
+                                  cond_mode: str = "aligned",
+                                  seed: int = 0) -> Callable[[], np.ndarray]:
+        """Queue the full device-resident synthesis without waiting for it.
+
+        The host work (MIDI parse, WAV decode, uploads through pinned
+        memory) runs here; the cond STFT, tile gather, forward, blend,
+        Griffin-Lim and the waveform's copy to pinned host memory are only
+        queued on the card. Returns a zero-argument ``fetch()`` that waits
+        for this request's waveform (see ``_fetch_async``). ``seed`` picks
+        Griffin-Lim's phase (``torch.Generator().manual_seed(seed)``). On
+        the CPU the work is done before this returns.
+
+        Nothing here synchronises with the card, but a request is about
+        4,700 kernel launches and the card holds about 1,000 pending ones
+        (chip_smoke.py measures both): past that, a launch waits for a
+        slot, so the host runs at most that far ahead of the card.
+        """
+        spec, t_total = self._predict_device(
+            self.midi_source, self.audio_source, overlap=overlap, cond_mode=cond_mode)
+        return _fetch_async(self._griffinlim_device(spec, t_total, n_iter, seed))
 
     def synthesize_waveform(self, n_iter: int = 300, overlap: bool = True,
                             cond_mode: str = "aligned") -> np.ndarray:
-        """Full device-resident synthesis: MIDI + audio -> waveform (host np)."""
-        spec, t_total = self._predict_device(
-            self.midi_source, self.audio_source, overlap=overlap, cond_mode=cond_mode)
-        return self._griffinlim_device(spec, t_total, n_iter).cpu().numpy()
+        """Full device-resident synthesis: MIDI + audio -> waveform (host np).
+        Uploads: the timbre waveform and int8 MIDI tiles; download: the
+        synthesized waveform; no spectrogram crosses."""
+        return self.synthesize_waveform_async(
+            n_iter=n_iter, overlap=overlap, cond_mode=cond_mode)()
 
     def inference(self, n_iter: int = 300, output_dir: str | None = None,
                   overlap: bool = True, cond_mode: str = "aligned") -> list[str]:
@@ -322,8 +576,9 @@ class AudioSynthesizer:
     def griffinlim(self, spectrogram: np.ndarray, n_iter: int = 300) -> np.ndarray:
         """Log-power spec (bins, frames) -> waveform
         (reference inference.py:105-110 signature equivalent)."""
-        wav = tgl.griffinlim_from_log_power(
-            spectrogram, generator=torch.Generator().manual_seed(0), n_iter=n_iter,
-            hop_length=self.hp.ws, clip_max=self.hp.clip_log_power_max,
-            device=self.device)
-        return wav.cpu().numpy()
+        with torch.inference_mode():
+            wav = tgl.griffinlim_from_log_power(
+                spectrogram, generator=torch.Generator().manual_seed(0), n_iter=n_iter,
+                hop_length=self.hp.ws, clip_max=self.hp.clip_log_power_max,
+                device=self.device)
+        return _fetch(wav)

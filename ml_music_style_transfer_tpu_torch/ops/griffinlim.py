@@ -11,6 +11,12 @@ With ``use_pallas_glue=True`` (the default) each iteration is
 irfft -> consistency glue -> rfft, the glue being the hand-written CUDA
 kernels of ``ops/kernels/gl_glue.py`` on a CUDA tensor and their plain
 version on a CPU tensor. With ``False`` the iteration is istft -> stft.
+
+``transform="dft"`` swaps the two FFTs for two matmuls on a packed real
+[Re|Im] state (the JAX package's ``_gl_steps_dft``), with the same glue
+between them; ``transform=None`` is "fft": on the H100 the dft loop takes
+about twice the fft loop's time per iteration at equal spectral
+convergence (chip_smoke.py's A/B, PERF.md).
 """
 from __future__ import annotations
 
@@ -25,9 +31,11 @@ EPS = 1.1754944e-38  # float32 tiny, the update's denominator guard
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    """float32 on ``device``; a host array reaches the card through pinned
+    memory without waiting for the stream (``stft.to_device``)."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.array(x))  # a writable copy (jax arrays are read-only)
-    return x.to(device=device, dtype=torch.float32)
+    return _stft.to_device(x.to(torch.float32), device)
 
 
 def griffinlim(
@@ -52,9 +60,9 @@ def griffinlim(
     Returns (..., samples), ``hop_length * (n_frames - 1)`` long unless
     ``length`` is given, on ``device``.
     """
-    if transform not in (None, "fft"):
-        raise NotImplementedError(
-            f"transform={transform!r}: only the FFT transform is ported")
+    transform = transform or "fft"
+    if transform not in ("fft", "dft"):
+        raise ValueError(f"transform must be 'fft' or 'dft', got {transform!r}")
     dev = resolve_device(device)
     magnitude = _as_tensor(magnitude, dev)
     if generator is None:
@@ -75,13 +83,13 @@ def griffinlim(
     angles = torch.complex(torch.cos(init_phase), torch.sin(init_phase))
     carry = (angles, torch.zeros_like(angles))
     angles, _ = gl_steps(magnitude, carry, n_iter, hop_length, win_length,
-                         momentum, use_pallas_glue, length)
+                         momentum, use_pallas_glue, length, transform)
     return _stft.istft(magnitude * angles, hop_length, win_length, length=length)
 
 
 def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
              momentum: float = 0.99, use_pallas_glue: bool = True,
-             length: int | None = None):
+             length: int | None = None, transform: str = "fft"):
     """Run ``n_iter`` Griffin-Lim iterations on an explicit carry.
 
     ``carry`` is ``(angles, rebuilt_prev)``, both complex (bins, frames);
@@ -90,6 +98,12 @@ def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
     n_fft = 2 * (magnitude.shape[-2] - 1)
     mom = momentum / (1.0 + momentum)
     angles, rebuilt = carry
+
+    if transform == "dft":
+        if win_length != n_fft or length is not None or magnitude.ndim != 2:
+            raise ValueError("transform='dft' needs one (bins, frames) clip, "
+                             "win_length == n_fft and length=None")
+        return _gl_steps_dft(magnitude, carry, n_iter, hop_length, mom, use_pallas_glue)
 
     if not use_pallas_glue:
         for _ in range(n_iter):
@@ -108,9 +122,7 @@ def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
     n_frames = magnitude.shape[-1]
     dev = magnitude.device
     window = _stft.window_tensor(n_fft, win_length, dev)
-    inv_blocks = torch.from_numpy(
-        _stft.wss_inv_const(n_fft, win_length, hop_length, n_frames).reshape(
-            n_frames + n_fft // hop_length - 1, hop_length)).to(dev)
+    inv_blocks = _inv_blocks(n_fft, hop_length, n_frames, dev)
     # frame-major (frames, bins) inside the loop: irfft/rfft run along the
     # contiguous last axis and the glue takes (frames, n_fft) rows
     mag_t = magnitude.transpose(-1, -2).contiguous()
@@ -124,6 +136,63 @@ def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
         angles = angles / (torch.abs(angles) + EPS)
         rebuilt = rebuilt_new
     return angles.transpose(-1, -2), rebuilt.transpose(-1, -2)
+
+
+def _inv_blocks(n_fft: int, hop: int, n_frames: int, device) -> torch.Tensor:
+    """1/window_sumsquare as the glue takes it, (n_frames + n_fft/hop - 1, hop)."""
+    return _stft.wss_inv_tensor(n_fft, n_fft, hop, n_frames, device).view(
+        n_frames + n_fft // hop - 1, hop)
+
+
+def _gl_steps_dft(magnitude, carry, n_iter: int, hop: int, mom: float,
+                  use_pallas_glue: bool):
+    """Griffin-Lim iterations with matmul-DFT transforms.
+
+    The loop state is packed real, (frames, 2*bins) [Re | Im], converted
+    from and to the complex (bins, frames) carry at the boundary only. Each
+    iteration: inverse matmul -> consistency glue -> forward matmul ->
+    momentum update. The glue is K3 (``gl_glue.gl_consistency_frames``:
+    the CUDA kernels on the card, their plain version on the CPU), or with
+    ``use_pallas_glue=False`` its plain version on any device. The matmuls
+    take float32 inputs on the CPU and bfloat16 inputs with float32
+    accumulation and output on the card, as the JAX package's accelerator
+    path (griffinlim.py:233); Griffin-Lim renormalises the phase every
+    iteration, so the rounding does not accumulate.
+    """
+    bins, n_frames = magnitude.shape
+    n_fft = 2 * (bins - 1)
+    dev = magnitude.device
+    on_card = dev.type == "cuda"
+    in_dtype = torch.bfloat16 if on_card else torch.float32
+    fwd, inv = _stft.dft_matrices(n_fft, in_dtype, dev)
+    window = _stft.window_tensor(n_fft, n_fft, dev)
+    inv_blocks = _inv_blocks(n_fft, hop, n_frames, dev)
+    glue = (_glue.gl_consistency_frames if use_pallas_glue
+            else _glue.gl_consistency_frames_reference)
+    mag_t = magnitude.transpose(0, 1)  # (frames, bins)
+
+    def matmul(a, b):
+        if on_card:  # bfloat16 in, float32 accumulation and out
+            return torch.mm(a.to(in_dtype), b, out_dtype=torch.float32)
+        return torch.mm(a, b)
+
+    def pack(z):  # complex (bins, frames) -> real (frames, 2*bins)
+        return torch.cat([z.real, z.imag], dim=0).transpose(0, 1).contiguous()
+
+    ang, reb = pack(carry[0]), pack(carry[1])
+    for _ in range(n_iter):
+        spec = torch.cat([ang[:, :bins] * mag_t, ang[:, bins:] * mag_t], dim=1)
+        frames = matmul(spec, inv)
+        reb_new = matmul(glue(frames, window, inv_blocks), fwd)
+        a = reb_new - mom * reb
+        norm = torch.sqrt(a[:, :bins] ** 2 + a[:, bins:] ** 2) + EPS
+        ang = torch.cat([a[:, :bins] / norm, a[:, bins:] / norm], dim=1)
+        reb = reb_new
+
+    def unpack(p):  # real (frames, 2*bins) -> complex (bins, frames)
+        return torch.complex(p[:, :bins], p[:, bins:]).transpose(0, 1)
+
+    return unpack(ang), unpack(reb)
 
 
 def griffinlim_from_log_power(

@@ -18,12 +18,14 @@ It replaces the JAX package's Pallas kernels in
 The kernels are in ``csrc/gl_glue.cu`` (design and bound in its header).
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version beside it. ``LAUNCHES`` counts kernel
-launches per kernel and nothing else.
+launches per kernel and nothing else; the serving daemon launches from two
+threads, so the counts are bumped under a lock.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -33,11 +35,18 @@ R = 8  # n_fft // hop overlap factor (2048 / 256)
 MIN_FRAMES = 3 * R  # as the JAX kernel's ``supported`` guard
 
 LAUNCHES = {"gl_ola_nola": 0, "gl_frame_window": 0}
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(kernel: str) -> None:
+    with _launch_lock:
+        LAUNCHES[kernel] += 1
 
 
 @functools.cache
@@ -124,7 +133,7 @@ def ola_nola(frames: torch.Tensor, window: torch.Tensor,
                              inv_blocks.data_ptr(), y.data_ptr(), nf, hop,
                              torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(err, "gl_ola_nola")
-    LAUNCHES["gl_ola_nola"] += 1
+    _count("gl_ola_nola")
     return y
 
 
@@ -143,7 +152,7 @@ def frame_window(y: torch.Tensor, window: torch.Tensor, nf: int) -> torch.Tensor
     err = _lib().gl_frame_window(y.data_ptr(), window.data_ptr(), g.data_ptr(),
                                  nf, hop, torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(err, "gl_frame_window")
-    LAUNCHES["gl_frame_window"] += 1
+    _count("gl_frame_window")
     return g
 
 

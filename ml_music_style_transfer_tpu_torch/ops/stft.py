@@ -4,8 +4,15 @@ Counterpart of the JAX package's ``ops/stft.py`` (librosa semantics,
 reference preprocessing/preprocess.py:47-57 and model/inference.py:105-110).
 Framing keeps the dense reshape-shift decomposition and the overlap-add its
 dense shifted sum (both need ``n_fft % hop == 0``, true for 2048/256). The
-transforms are ``torch.fft.rfft``/``irfft`` (cuFFT on the card); the JAX
-package's matmul-DFT transform is a TPU choice and is not ported.
+transforms are ``torch.fft.rfft``/``irfft`` (cuFFT on the card) or, with
+``transform="dft"``, one matmul against a packed [Re|Im] DFT matrix
+(``dft_matrices``), as the JAX package's accelerator path.
+
+Host data reaches the card through ``to_device``: pinned memory and a copy
+that does not wait for the stream, so a caller that queues work for the
+card is never held up by the work queued before it (the serving daemon
+relies on this). The constants (window, NOLA curve, DFT matrices) are
+uploaded once per device and shape and kept (``_kept``).
 """
 from __future__ import annotations
 
@@ -34,8 +41,70 @@ def wss_inv_const(n_fft: int, win_length: int, hop: int, n_frames: int) -> np.nd
     return inv.astype(np.float32)
 
 
-def window_tensor(n_fft: int, win_length: int, device) -> torch.Tensor:
-    return torch.from_numpy(window_const(n_fft, win_length)).to(device)
+@functools.lru_cache(maxsize=8)
+def _dft_matrices_host(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """One-sided real-DFT matmul pair, exact in float64.
+
+    For real frames x (rows of length n_fft), bins = n_fft // 2 + 1:
+      rfft:  x @ fwd = [Re X | Im X]            fwd (n_fft, 2*bins)
+      irfft: [Re X | Im X] @ inv = x            inv (2*bins, n_fft)
+    ``inv`` carries the hermitian weights (2 except DC and Nyquist) and the
+    1/n_fft normalisation (the JAX package's ``stft._dft_matrices_host``).
+    """
+    bins = n_fft // 2 + 1
+    n = np.arange(n_fft)[:, None]
+    k = np.arange(bins)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    cos, sin = np.cos(ang), np.sin(ang)
+    fwd = np.concatenate([cos, -sin], axis=1)
+    w = np.where((k == 0) | (k == bins - 1), 1.0, 2.0)
+    inv = np.concatenate([(w * cos / n_fft).T, (-w * sin / n_fft).T], axis=0)
+    return fwd, inv
+
+
+def _kept(maker):
+    """Cache a constant tensor per arguments (device included). Made outside
+    inference mode, so a constant first made while serving can still be
+    saved for backward by a training step in the same process."""
+    @functools.lru_cache(maxsize=16)
+    @functools.wraps(maker)
+    def kept(*args):
+        with torch.inference_mode(False):
+            return maker(*args)
+    return kept
+
+
+@_kept
+def dft_matrices(n_fft: int, dtype: torch.dtype, device: torch.device):
+    """``(fwd, inv)`` of ``_dft_matrices_host`` rounded once to ``dtype``,
+    on ``device``."""
+    fwd, inv = _dft_matrices_host(n_fft)
+    return (to_device(fwd.astype(np.float32), device).to(dtype),
+            to_device(inv.astype(np.float32), device).to(dtype))
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A numpy array or CPU tensor as a tensor on ``device``; to the card
+    through pinned memory with a copy that does not wait for earlier work on
+    the stream (PyTorch's pinned allocator keeps the staging buffer until
+    the copy has run)."""
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.contiguous().pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@_kept
+def window_tensor(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
+    return to_device(window_const(n_fft, win_length), device)
+
+
+@_kept
+def wss_inv_tensor(n_fft: int, win_length: int, hop: int, n_frames: int,
+                   device: torch.device) -> torch.Tensor:
+    """``wss_inv_const`` on ``device``."""
+    return to_device(wss_inv_const(n_fft, win_length, hop, n_frames), device)
 
 
 def reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
@@ -105,8 +174,7 @@ def istft(
     window = window_tensor(n_fft, win_length, S.device)
     frames = torch.fft.irfft(S.transpose(-1, -2), n=n_fft, dim=-1) * window
     y = overlap_add(frames, hop_length)
-    y = y * torch.from_numpy(
-        wss_inv_const(n_fft, win_length, hop_length, n_frames)).to(S.device)
+    y = y * wss_inv_tensor(n_fft, win_length, hop_length, n_frames, S.device)
     if center:
         y = y[..., n_fft // 2 : y.shape[-1] - n_fft // 2]
     if length is not None:
@@ -137,10 +205,23 @@ def log_power_stft(
 
     ``center=False`` skips the reflect padding because the caller applied it
     on the host (the serving path does, to bucket sample counts).
-    ``transform`` is "fft" (or None); the JAX package's "dft" matmul
-    transform is not ported yet.
+    ``transform``: "fft" (the default, None) or "dft", one float32 matmul of
+    the windowed frames against ``dft_matrices`` that never forms a complex
+    array (the JAX package's ``stft.py:226-247``; it keeps the 1e-3
+    log-space contract against the float64 STFT, so no bfloat16 here).
     """
-    if transform not in (None, "fft"):
-        raise NotImplementedError(
-            f"transform={transform!r}: only the FFT transform is ported")
-    return log_power(stft(y, n_fft=n_fft, hop_length=hop_length, center=center))
+    if transform in (None, "fft"):
+        return log_power(stft(y, n_fft=n_fft, hop_length=hop_length, center=center))
+    if transform != "dft":
+        raise ValueError(f"transform must be 'fft' or 'dft', got {transform!r}")
+    if n_fft % hop_length != 0:
+        raise NotImplementedError("hop must divide n_fft for the dense framing")
+    bins = n_fft // 2 + 1
+    window = window_tensor(n_fft, n_fft, y.device)
+    if center:
+        y = reflect_pad(y, n_fft // 2)
+    n_frames = 1 + (y.shape[-1] - n_fft) // hop_length
+    frames = frame_dense(y, n_fft, hop_length, n_frames)
+    fwd, _ = dft_matrices(n_fft, torch.float32, y.device)
+    p = torch.matmul(frames * window, fwd)
+    return torch.log1p(p[..., :bins] ** 2 + p[..., bins:] ** 2).transpose(-1, -2)

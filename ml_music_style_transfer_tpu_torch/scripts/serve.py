@@ -1,0 +1,292 @@
+"""Long-lived serving daemon: JSON-lines requests -> synthesized WAVs.
+
+The port's counterpart of the JAX package's ``scripts/serve.py``. The
+one-shot CLI (``infer/cli.py``) pays process start-up, kernel build and
+checkpoint load per clip; this daemon holds the warm state (the built
+kernels and the module-level model cache of ``infer/synthesize.py``), so
+every request after the first runs at steady serving speed.
+
+Requests are PIPELINED: the reader thread parses, uploads and queues the
+card's work (``AudioSynthesizer.synthesize_waveform_async``); one completer
+thread waits for each result, writes the WAV and answers in request order,
+so host prep of request N+1 overlaps the card's work on request N
+(``--pipeline-depth``, default 2; 0 is serial).
+
+Protocol: one JSON object per stdin line ->
+    {"midi": PATH, "audio": PATH, "out": PATH,
+     "n_iter": 300, "cond_mode": "aligned"|"center",
+     "overlap": true, "whole_clip": false,
+     # whole-clip extras: shard_gl (default auto) time-shards Griffin-Lim
+     # over the mesh alongside the forward (parallel/gl_shard.py)
+     "shard_gl": null|true|false, "gl_halo": 32, "gl_rounds": 10}
+one JSON response per stdout line:
+    {"ok": true, "out": PATH, "seconds": S, "realtime_x": R}
+    {"ok": false, "error": "..."}
+EOF (or a line "quit") shuts down cleanly.
+
+Dynamic batching: a request may instead carry a list of clips ->
+    {"batch": [{"midi": PATH, "audio": PATH, "out": PATH}, ...],
+     "n_iter": 300, "cond_mode": "aligned", "overlap": true}
+All clips' forwards run device-resident, then equal-length clips share ONE
+Griffin-Lim dispatch (batched over the data mesh when --mesh-data > 1;
+infer/bulk.py). The response is one line with per-item results:
+    {"ok": true, "batch": [{"ok": true, "out": PATH} | {"ok": false,
+     "error": "..."}, ...], "seconds": S}
+
+(The protocol is the JAX daemon's, word for word. On one card a
+"shard_gl": true request fails with an error naming the multi-device work,
+"gl_halo" and "gl_rounds" are ignored, and batches run on one device.)
+
+Usage:
+    python -m ml_music_style_transfer_tpu_torch.scripts.serve -exp-name NAME \\
+        [--width-mult F] [--checkpoint PATH] [--device cuda|cpu] < requests.jsonl
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import queue
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+from ..config import ModelConfig
+from ..data import audio_io
+from ..device import resolve_device
+from ..infer import bulk
+from ..infer.synthesize import EMA_ITEM, MULTI_DEVICE_ITEM, AudioSynthesizer
+from ..midi import writer as midi_writer
+from ..testing import synthetic
+
+
+def _write_wav_out(wav, out_path, sr) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    audio_io.write_wav(out_path, wav, sr)
+
+
+def warmup(make_synth, durations, n_iter: int = 300, whole_clip: bool = False) -> None:
+    """Run the serving paths once before the first real request.
+
+    For each duration (seconds) a synthetic MIDI + WAV pair goes through
+    the same paths requests take (the tiled single-clip synthesis, the
+    dynamic batch and optionally the whole clip), so first-touch costs
+    (cuDNN's algorithm search for new shapes, the caching allocator's
+    growth, pinned host buffers) land at start-up instead of in a user's
+    request.
+    """
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(prefix="mmst_warmup_") as tmp:
+        for k, dur in enumerate(durations):
+            t0 = time.perf_counter()
+            notes = synthetic.random_song(rng, duration=float(dur))
+            mp = os.path.join(tmp, f"warm{k}.mid")
+            wp = os.path.join(tmp, f"warm{k}.wav")
+            midi_writer.save(mp, notes)
+            audio_io.write_wav(wp, rng.standard_normal(
+                int(float(dur) * 44100)).astype(np.float32) * 0.1, 44100)
+            synth = make_synth(mp, wp)
+            synth.synthesize_waveform(n_iter=n_iter)
+            bulk.batch_synthesize_waveforms([synth, make_synth(mp, wp)], n_iter=n_iter)
+            if whole_clip:
+                synth.synthesize_whole_clip(n_iter=n_iter)
+            print(f"warmup {dur}s: {time.perf_counter() - t0:.1f}s "
+                  f"(whole_clip={whole_clip})", file=sys.stderr)
+
+
+def _serve_batch(make_synth, req) -> dict:
+    """One dynamic batch: every item queued on the card before the first is
+    fetched (per-item error isolation inside
+    ``bulk.batch_synthesize_waveforms``)."""
+    items = req["batch"]
+    synths, results = [], [None] * len(items)
+    idx_map = []  # position in `synths` -> position in `items`
+    for i, it in enumerate(items):
+        try:
+            synths.append(make_synth(it["midi"], it["audio"]))
+            idx_map.append(i)
+        except Exception as e:  # noqa: BLE001 — per-item isolation at construction too
+            results[i] = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+    wavs, errors = bulk.batch_synthesize_waveforms(
+        synths, n_iter=int(req.get("n_iter", 300)),
+        overlap=bool(req.get("overlap", True)),
+        cond_mode=req.get("cond_mode", "aligned"))
+    for j, i in enumerate(idx_map):
+        if errors[j] is not None:
+            results[i] = {"ok": False, "error": errors[j]}
+            continue
+        try:  # one unwritable "out" must not discard the other items
+            _write_wav_out(wavs[j], items[i]["out"], synths[j].hp.sr)
+            results[i] = {"ok": True, "out": items[i]["out"]}
+        except Exception as e:  # noqa: BLE001 — per-request isolation
+            results[i] = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+    return {"ok": True, "batch": results}
+
+
+def serve_loop(make_synth, in_stream, out_stream, pipeline_depth: int = 2) -> int:
+    """Handle requests until EOF/'quit'. Returns the number served.
+
+    ``make_synth(midi, audio)`` returns an ``AudioSynthesizer`` for the
+    request's sources; the module-level model cache makes repeat
+    construction cheap (no re-read, no re-upload).
+
+    The reader thread (the caller's) does the host work and queues the
+    card's work; the completer thread waits for results, writes WAVs and
+    emits responses in request order. ``pipeline_depth`` bounds the queued
+    requests (their device buffers stay allocated until fetched); 0 makes
+    the reader wait until the completer has answered each request. Batch
+    and whole-clip requests run in the completer as one unit each, still
+    in order and isolated per request.
+
+    Threads: ``torch.inference_mode`` is thread-local, so the synthesizer's
+    device methods enter it themselves in whichever thread runs them. Both
+    threads queue work on the card's one stream; a completer ``fetch()``
+    waits on an event recorded right after its own request's work, so it
+    never waits for requests queued after it (``synthesize._fetch_async``).
+    """
+    q: queue.Queue = queue.Queue(maxsize=max(1, pipeline_depth))
+    served = 0
+    lock = threading.Lock()  # guards `served` (completer) vs return (reader)
+
+    def emit(resp: dict, t0: float, n_ok: int) -> None:
+        nonlocal served
+        resp["seconds"] = round(time.perf_counter() - t0, 3)
+        with lock:
+            served += n_ok
+        out_stream.write(json.dumps(resp) + "\n")
+        out_stream.flush()
+
+    def completer() -> None:
+        while True:
+            item = q.get()
+            try:
+                if item is None:
+                    return
+                kind, payload, t0 = item
+                if kind == "resp":  # parse/dispatch-time error, pre-built
+                    emit(payload, t0, 0)
+                    continue
+                if kind == "thunk":  # batch / whole clip
+                    try:
+                        resp = payload()
+                        n_ok = (sum(r["ok"] for r in resp["batch"])
+                                if "batch" in resp else int(resp["ok"]))
+                    except Exception as e:  # noqa: BLE001 — isolation
+                        resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                        n_ok = 0
+                    emit(resp, t0, n_ok)
+                    continue
+                # kind == "fetch": wait for the queued device result
+                fetch, out_path, sr = payload
+                try:
+                    wav = fetch()
+                    _write_wav_out(wav, out_path, sr)
+                    dt = time.perf_counter() - t0
+                    resp = {"ok": True, "out": out_path,
+                            "realtime_x": round(len(wav) / sr / dt, 2)}
+                    n_ok = 1
+                except Exception as e:  # noqa: BLE001 — isolation
+                    resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                    n_ok = 0
+                emit(resp, t0, n_ok)
+            finally:
+                q.task_done()
+
+    worker = threading.Thread(target=completer, name="serve-completer", daemon=True)
+    worker.start()
+    try:
+        for line in in_stream:
+            line = line.strip()
+            if not line:
+                continue
+            if line == "quit":
+                break
+            t0 = time.perf_counter()
+            try:
+                req = json.loads(line)
+                if "batch" in req:
+                    q.put(("thunk", lambda req=req: _serve_batch(make_synth, req), t0))
+                else:
+                    synth = make_synth(req["midi"], req["audio"])
+                    n_iter = int(req.get("n_iter", 300))
+                    if req.get("whole_clip"):
+                        def run_whole(synth=synth, req=req, n_iter=n_iter):
+                            wav = synth.synthesize_whole_clip(
+                                n_iter=n_iter, shard_gl=req.get("shard_gl"))
+                            _write_wav_out(wav, req["out"], synth.hp.sr)
+                            return {"ok": True, "out": req["out"]}
+
+                        q.put(("thunk", run_whole, t0))
+                    else:
+                        # the hot path: host prep and queueing here, the
+                        # wait and the WAV write in the completer
+                        fetch = synth.synthesize_waveform_async(
+                            n_iter=n_iter, overlap=bool(req.get("overlap", True)),
+                            cond_mode=req.get("cond_mode", "aligned"))
+                        q.put(("fetch", (fetch, req["out"], synth.hp.sr), t0))
+            except Exception as e:  # noqa: BLE001 — per-request isolation at dispatch
+                q.put(("resp", {"ok": False, "error": f"{type(e).__name__}: {e}"}, t0))
+            if pipeline_depth == 0:
+                q.join()
+    finally:
+        q.put(None)
+        worker.join()
+    with lock:
+        return served
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("-exp-name", dest="exp_name", required=True)
+    ap.add_argument("--width-mult", type=float, default=1.0)
+    ap.add_argument("--use-ema", action="store_true")
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--exp-root", default="./experiments")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data-parallel devices for batch requests (multi-device: "
+                         "only 1 is served yet)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="max queued requests: host prep of request N+1 overlaps the "
+                         "card's work on request N (0 = serial)")
+    ap.add_argument("--warmup", default="",
+                    help="comma-separated clip durations (seconds) to run once at "
+                         "start-up, e.g. '10,30'; '' disables")
+    ap.add_argument("--warmup-whole-clip", action="store_true",
+                    help="also run the whole-clip path per --warmup duration")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh_data > 1:
+        raise NotImplementedError(f"--mesh-data {args.mesh_data} waits for {MULTI_DEVICE_ITEM}")
+    if args.use_ema:
+        raise NotImplementedError(f"--use-ema waits for {EMA_ITEM}")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # no request pays for nvcc: every kernel is built before stdin is read
+        from ..ops.kernels import _build
+
+        print(f"kernels built in {_build.build_all():.1f} s", file=sys.stderr)
+
+    exp_dir = os.path.join(os.path.abspath(args.exp_root), args.exp_name)
+    cfg = ModelConfig(width_mult=args.width_mult)
+
+    def make_synth(midi, audio):
+        return AudioSynthesizer(exp_dir, midi, audio, model_cfg=cfg,
+                                checkpoint_path=args.checkpoint, device=device)
+
+    if args.warmup:
+        warmup(make_synth, [float(d) for d in args.warmup.split(",") if d.strip()],
+               whole_clip=args.warmup_whole_clip)
+    print(f"serving {exp_dir} (width_mult={args.width_mult}, device={device}); "
+          "one JSON request per line, 'quit' or EOF to stop", file=sys.stderr)
+    n = serve_loop(make_synth, sys.stdin, sys.stdout, pipeline_depth=args.pipeline_depth)
+    print(f"served {n} requests", file=sys.stderr)
+    return n
+
+
+if __name__ == "__main__":
+    main()

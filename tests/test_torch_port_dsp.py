@@ -80,8 +80,16 @@ class TestStft:
         np.testing.assert_allclose(back, y, atol=1e-4)
 
     def test_dft_transform_is_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            tstft.log_power_stft(torch.zeros(8192), transform="dft")
+        """The matmul-DFT transform is ported now (its parity with JAX is in
+        tests/test_torch_port_dft.py); a transform neither "fft" nor "dft"
+        is refused."""
+        y = torch.from_numpy(np.random.default_rng(0).standard_normal(8192).astype(np.float32))
+        fft = tstft.log_power_stft(y, transform="fft")
+        dft = tstft.log_power_stft(y, transform="dft")
+        assert dft.shape == fft.shape
+        assert float((dft - fft).abs().max()) <= 1e-3
+        with pytest.raises(ValueError, match="transform"):
+            tstft.log_power_stft(y, transform="wavelet")
 
 
 class TestGlueReference:

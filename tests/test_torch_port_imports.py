@@ -44,6 +44,9 @@ def test_scan_covers_the_package_and_the_smoke_script():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in rel and os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
     assert f"{PKG}/ops/kernels/gl_glue.py" in rel and len(rel) > 15
+    for new in ("infer/bulk.py", "parallel/time_shard.py", "testing/synthetic.py",
+                "scripts/serve.py", "scripts/bench_inference.py"):
+        assert f"{PKG}/{new}" in rel
 
 
 def test_rule_catches_the_jax_package_but_not_the_port():
@@ -56,7 +59,9 @@ def test_rule_catches_the_jax_package_but_not_the_port():
     f"{PKG}.infer.cli", f"{PKG}.infer.synthesize", f"{PKG}.ops.kernels.gl_glue",
     f"{PKG}.ops.kernels._build", f"{PKG}.compat.weights", f"{PKG}.ops.kernels.dropout",
     f"{PKG}.train.cli", f"{PKG}.train.loop", f"{PKG}.data.dataset", f"{PKG}.ops.mel",
-    f"{PKG}.ops.kernels.fused_conv", f"{PKG}.scripts.bench_fused_conv"])
+    f"{PKG}.ops.kernels.fused_conv", f"{PKG}.scripts.bench_fused_conv",
+    f"{PKG}.infer.bulk", f"{PKG}.parallel.time_shard", f"{PKG}.testing.synthetic",
+    f"{PKG}.scripts.serve", f"{PKG}.scripts.bench_inference"])
 def test_modules_import_without_nvcc_or_a_card(module):
     """Importing builds nothing: kernels compile at their first launch."""
     importlib.import_module(module)
