@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths and its fused
-conv-block kernel on one NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's serving, training and data paths and its
+fused conv-block kernel on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -66,6 +66,30 @@ scipy and the standard library. Phases, each reported on its own lines:
      time, frames/s, peak memory and a profile of the top device
      operations. Neither serving nor training may launch the fused conv
      kernel (the model keeps cuDNN's conv, as the JAX model keeps XLA's);
+  13. data path at full width (right after phase 11, on its trainer):
+     ``make_dataset_dir`` of 6 songs x 30 s x 2 styles (gentleman,
+     harpsichord, rms); the port's preprocessing (``get_arrays`` with
+     ``store_audio``: the card's machine has no h5py, so the arrays stay in
+     memory, as ``load_dataset`` would read them) of 4 train and 2 test
+     songs with the device STFT backend (seconds per (song, style),
+     frames/s), one song again with the host (NumPy) backend, which must
+     agree within 5e-4 in log space; the schema's keys, shapes and dtype;
+     the native assembler's batch bit-equal to the Python assembly for the
+     same draws; ``gather_batch`` on a float32 ``DeviceDataStore`` within
+     5e-4 of the host batch of stored spectrograms, and the bf16 store's
+     target difference; then ``train_epoch_resident`` (10 + 10 dropout
+     launches per step) and ``evaluate_resident`` (none) at full width,
+     bf16; then resident epochs against host-fed epochs (native assembler,
+     page-locked slots), 8 timed epochs each: seconds per step, frames/s,
+     device busy share and peak memory of each;
+  14. store at MusicNet-piano scale: a bf16 ``DeviceDataStore`` of 1,700
+     chunks x 5 styles made on the card from a seed (``hbm_bytes``: 3.74 GB
+     of audio, 0.37 GB of int8 rolls), the warm resident step at batch 16
+     beside the full-width model and Adam (12 steps: median seconds,
+     frames/s, busy share from 3 profiled steps, peak memory); then the
+     ``metric`` lines of ``scripts/bench_train.py`` under its names, for
+     the host-fed (phase 13) and the resident (phase 14) step, and
+     ``preprocess_frames_per_sec``;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -79,8 +103,11 @@ scipy and the standard library. Phases, each reported on its own lines:
      the kernel's; the launch-weighted totals and ratio over the 64 blocks.
 
 Lines starting ``metric`` carry the serving system's numbers under the
-names ``scripts/bench_inference.py`` prints. The glue kernels' ``launches``
-in the kernels' JSON record sum their counts over phases 4 and 6-9. The
+names ``scripts/bench_inference.py`` prints, and the train step's under
+``scripts/bench_train.py``'s. The glue kernels' ``launches`` in the
+kernels' JSON record sum their counts over phases 4 and 6-9, the dropout
+kernel's over phases 11 (12 steps), 13 (the resident epoch and the
+evaluation) and 14 (12 steps). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -786,23 +813,13 @@ def dropout_phase(torch, dk):
 
 # ---- phase 11: training path -------------------------------------------------
 
-def synthetic_chunks(n: int, seed: int, styles=("cuba", "upright")) -> dict:
-    """Seeded preprocessed-dataset arrays: rolls in {0, 1}, onoff in
-    {-1, 0, 1}, log-power specs uniform in [0, 8], two styles."""
-    rng = np.random.default_rng(seed)
-    raw = {"pianoroll": (rng.random((n, 860, 128), dtype=np.float32) < 0.05).astype(np.float32),
-           "onoff": rng.integers(-1, 2, (n, 860, 128)).astype(np.float32)}
-    for s in styles:
-        raw[f"spec_{s}"] = rng.random((n, 1025, 860), dtype=np.float32) * 8.0
-    return raw
-
-
 def train_phase(torch, dk, glue):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
     from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
     from ml_music_style_transfer_tpu_torch.train.checkpoint import ExperimentState
     from ml_music_style_transfer_tpu_torch.train.loop import Trainer, device_prefetch
 
@@ -814,8 +831,8 @@ def train_phase(torch, dk, glue):
     n_params = sum(p.numel() for p in tr.model.parameters())
     print(f"train: PerformanceNet params={n_params} + Adam built in {time.perf_counter() - t0:.2f} s")
     check(n_params == FULL_WIDTH_PARAMS, f"param count {n_params} != {FULL_WIDTH_PARAMS}")
-    train_ds = ChunkDataset.from_arrays(synthetic_chunks(32, seed=1), seed=0)
-    test_ds = ChunkDataset.from_arrays(synthetic_chunks(24, seed=2), seed=1)
+    train_ds = ChunkDataset.from_arrays(host_arrays(32, seed=1), seed=0)
+    test_ds = ChunkDataset.from_arrays(host_arrays(24, seed=2), seed=1)
 
     def step_launches():
         return dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"]
@@ -862,6 +879,7 @@ def train_phase(torch, dk, glue):
     check(not any(glue.LAUNCHES.values()), "training launched the Griffin-Lim glue")
     launches = sum(step_launches())
     print(f"launches on the training path: {dict(dk.LAUNCHES)} (12 steps)")
+    busy = {}
 
     seed = tr.next_dropout_seed()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -875,6 +893,7 @@ def train_phase(torch, dk, glue):
                    and not getattr(e, "is_user_annotation", False) and "#" not in e.key),
                   reverse=True)
     device_ms = sum(ms for ms, _, _ in rows)
+    busy.update(step_s=step_s, device_ms=device_ms, peak=peak)
     print(f"profile: train step (3 warm steps under the profiler): device {device_ms:.2f} ms/step "
           f"in {sum(c for _, c, _ in rows)} kernels and copies; device busy "
           f"{100 * device_ms / (step_s * 1e3):.1f} % of the unprofiled warm step")
@@ -884,7 +903,200 @@ def train_phase(torch, dk, glue):
         if "philox_dropout" in key:
             print(f"profile: dropout kernel {ms:.3f} ms/step ({100 * ms / device_ms:.2f} %) "
                   f"in {count} launches: {key[:90]}")
-    return launches
+    return launches, tr, busy
+
+
+# ---- phase 13: the data path at full width -----------------------------------
+
+DATA_STYLES = ("gentleman", "harpsichord")
+STFT_TOL = 5e-4  # log space: float32 FFT against float64 (JAX preprocess.py:176, ~2e-4)
+SCHEMA = {"pianoroll": (860, 128), "onoff": (860, 128)}
+for _s in DATA_STYLES:
+    SCHEMA[f"spec_{_s}"] = (1025, 860)
+    SCHEMA[f"audio_{_s}"] = (219904,)
+
+
+def host_batch(ds, idx, cond_idx, style) -> dict:
+    """The batch ``ChunkDataset.assemble`` builds for these draws."""
+    t = np.stack([ds.specs[ds.styles[s]][i] for i, s in zip(idx, style)])
+    c = np.stack([ds.specs[ds.styles[s]][i] for i, s in zip(cond_idx, style)])
+    return {"midi": ds.pianoroll[idx], "onoff": ds.onoff[idx], "cond": c, "target": t}
+
+
+def epoch_rate(torch, bt, run_epoch, n_steps: int, what: str) -> dict:
+    """One warm-up epoch, then 8 timed epochs (median seconds per step) and
+    one under the profiler (device ms per step, busy share)."""
+    run_epoch()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = bt.epoch_step_seconds(run_epoch, n_steps, torch.device("cuda"), 8)
+    step_s = statistics.median(per_step)
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = bt.device_ms_per_step(run_epoch, n_steps)
+    print(f"data: {what}: epochs of {n_steps} steps, s/step {[round(x, 4) for x in per_step]}, "
+          f"median {step_s:.4f} s, {16 * 860 / step_s:.0f} frames/s, device {dev_ms:.2f} ms/step, "
+          f"busy {100 * dev_ms / (step_s * 1e3):.1f} %, max_memory_allocated_GB={peak / 1e9:.3f}")
+    return dict(step_s=step_s, device_ms=dev_ms, peak=peak)
+
+
+def data_phase(torch, dk, tr, tmp):
+    """Phase 13: synthetic songs -> port preprocessing -> schema -> native
+    assembler vs Python -> device store: gather vs host batch -> resident
+    training and evaluation at full width (bf16), against host-fed epochs."""
+    from ml_music_style_transfer_tpu_torch.data import preprocess as pp
+    from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.data.device_store import DeviceDataStore, gather_batch
+    from ml_music_style_transfer_tpu_torch.scripts import bench_train as bt
+    from ml_music_style_transfer_tpu_torch.testing import synthetic
+
+    raw_dir = os.path.join(tmp, "songs")
+    t = time.perf_counter()
+    synthetic.make_dataset_dir(raw_dir, [1, 2, 3, 4, 5, 6], styles=DATA_STYLES, duration=30.0,
+                               seed=0, normalize="rms")
+    print(f"data: make_dataset_dir 6 songs x 30 s x {len(DATA_STYLES)} styles (rms) "
+          f"{time.perf_counter() - t:.2f} s")
+    kw = dict(styles=DATA_STYLES, store_audio=True, device="cuda")
+    pp.get_arrays(raw_dir, "train", song_ids=[6], stft_backend="device", **kw)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    train = pp.get_arrays(raw_dir, "train", song_ids=[1, 2, 3, 4], stft_backend="device", **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    n = train["pianoroll"].shape[0]
+    print(f"data: preprocess train (4 songs x 2 styles, device STFT, store_audio) {dt:.3f} s, "
+          f"{dt / 8:.3f} s per (song, style), {n} chunks, "
+          f"{n * len(DATA_STYLES) * 860 / dt:.0f} spectrogram frames/s end to end")
+    test = pp.get_arrays(raw_dir, "test", song_ids=[5, 6], stft_backend="device", **kw)
+    for name, raw in (("train", train), ("test", test)):
+        got = {k: v.shape[1:] for k, v in raw.items()}
+        check(got == SCHEMA and len({v.shape[0] for v in raw.values()}) == 1
+              and all(v.dtype == np.float32 for v in raw.values()),
+              f"{name} arrays break the schema: { {k: v.shape for k, v in raw.items()} }")
+    print(f"data: schema ok: { {k: v.shape for k, v in train.items()} } float32; "
+          f"test {test['pianoroll'].shape[0]} chunks")
+    t = time.perf_counter()
+    host = pp.get_arrays(raw_dir, "train", song_ids=[1], stft_backend="host", **kw)
+    dt_host = time.perf_counter() - t
+    n1 = host["pianoroll"].shape[0]
+    err = max(float(np.abs(host[k] - train[k][:n1]).max()) for k in host if k.startswith("spec_"))
+    exact = all(np.array_equal(host[k], train[k][:n1]) for k in host if not k.startswith("spec_"))
+    print(f"data: song 1 host (NumPy) vs device STFT backend: spec max_abs_err={err:.3e} "
+          f"(tolerance {STFT_TOL}), rolls/onoff/audio equal={exact}; host backend {dt_host:.3f} s "
+          f"for {n1} chunks x 2 styles")
+    check(err <= STFT_TOL and exact, "device and host STFT backends disagree")
+
+    ds = ChunkDataset.from_arrays(train, seed=0)
+    rng = np.random.default_rng(5)
+    draws = (rng.integers(0, n, 16), rng.integers(0, n, 16), rng.integers(0, 2, 16))
+    asm = ds.native_assembler(16, pin_memory=True)
+    asm.submit(*draws)
+    slot, nb = asm.next()
+    pinned = torch.from_numpy(nb["target"]).is_pinned()
+    want = host_batch(ds, *draws)
+    same = all(np.array_equal(nb[k], want[k]) for k in want)
+    asm.release(slot)
+    print(f"data: native assembler vs Python assembly, 16 draws: bit-equal={same}; "
+          f"slot page-locked={pinned}")
+    check(same, "the native assembler's batch differs from the Python assembly")
+
+    store32 = DeviceDataStore.from_arrays(train, seed=0, audio_dtype=torch.float32)
+    idx, cond_idx, style = (store32.put_idx(a) for a in draws)
+    with torch.no_grad():
+        b32 = gather_batch(store32.audio, store32.pianoroll, store32.onoff, idx, cond_idx, style)
+        errs = {k: float((b32[k].cpu() - torch.from_numpy(want[k])).abs().max()) for k in want}
+    print(f"data: gather_batch (float32 store) on the card vs the host batch of stored "
+          f"spectrograms: max_abs_err {errs} (tolerance {STFT_TOL})")
+    check(max(errs.values()) <= STFT_TOL, "gather_batch disagrees with the host batch")
+    store = DeviceDataStore.from_arrays(train, seed=0)  # bfloat16 audio, the default
+    test_store = DeviceDataStore.from_arrays(test, seed=1)
+    with torch.no_grad():
+        b16 = gather_batch(store.audio, store.pianoroll, store.onoff, idx, cond_idx, style)
+        d = (b16["target"] - b32["target"]).abs()
+    print(f"data: bf16 vs float32 resident audio, targets: max_abs {float(d.max()):.4f} "
+          f"mean_abs {float(d.mean()):.5f} (log power; target mean "
+          f"{float(b32['target'].mean()):.4f})")
+    del store32, b32, b16, d
+
+    def counts():
+        return dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"]
+
+    dk.reset_launches()  # counts from here on are the resident path's
+    steps = n // 16
+    loss = tr.train_epoch_resident(store, epoch=0)
+    check(counts() == (10 * steps, 10 * steps),
+          f"resident epoch of {steps} steps: dropout launches {counts()}")
+    test_loss = tr.evaluate_resident(test_store)
+    check(counts() == (10 * steps, 10 * steps), "evaluate_resident launched the dropout kernel")
+    check(bool(np.isfinite([loss, test_loss]).all()), "resident losses not finite")
+    launches = sum(counts())
+    print(f"data: train_epoch_resident ({steps} steps) loss {loss:.6f}, evaluate_resident "
+          f"({test_store.n_data} chunks) mse {test_loss:.6f}; dropout launches {dict(dk.LAUNCHES)}")
+
+    resident = epoch_rate(torch, bt, lambda: tr.train_epoch_resident(store, 0), steps,
+                          "resident epochs (bf16 store)")
+    fed = epoch_rate(torch, bt, lambda: tr.train_epoch(ds, 0, log_every=10**9), steps,
+                     "host-fed epochs (native assembler, page-locked slots)")
+    asm.close()
+    return launches, resident, fed
+
+
+# ---- phase 14: the store at MusicNet-piano scale ------------------------------
+
+SCALE_CHUNKS, SCALE_STYLES = 1700, ("cuba", "aliciakeys", "gentleman", "harpsichord", "upright")
+
+
+def scale_phase(torch, dk, tr):
+    """Phase 14: a bf16 store of 1,700 chunks x 5 styles made on the card,
+    and the warm resident step at batch 16 beside the full-width model."""
+    from ml_music_style_transfer_tpu_torch.data.device_store import DeviceDataStore
+    from ml_music_style_transfer_tpu_torch.scripts import bench_train as bt
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    raw = {"pianoroll": (torch.rand((SCALE_CHUNKS, 860, 128), generator=gen, device="cuda")
+                         < 0.05).to(torch.int8),
+           "onoff": torch.randint(-1, 2, (SCALE_CHUNKS, 860, 128), generator=gen,
+                                  device="cuda", dtype=torch.int8)}
+    for s in SCALE_STYLES:
+        raw[f"audio_{s}"] = 0.05 * torch.randn((SCALE_CHUNKS, 219904), generator=gen,
+                                               device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    store = DeviceDataStore.from_arrays(raw, seed=0)
+    torch.cuda.synchronize()
+    del raw
+    hbm = store.hbm_bytes()
+    audio_bytes = store.audio.numel() * store.audio.element_size()
+    print(f"scale: DeviceDataStore {tuple(store.audio.shape)} {store.audio.dtype} + int8 rolls "
+          f"built in {time.perf_counter() - t:.2f} s: hbm_bytes={hbm} ({hbm / 1e9:.3f} GB; audio "
+          f"{audio_bytes / 1e9:.3f} GB, rolls {(hbm - audio_bytes) / 1e9:.3f} GB)")
+    check(audio_bytes == 5 * SCALE_CHUNKS * 219904 * 2, "store audio size")
+    torch.cuda.reset_peak_memory_stats()
+    dk.reset_launches()  # counts from here on are this phase's resident steps
+    plan = store.draw_epoch_indices(16)
+    idx = [next(plan) for _ in range(15)]
+    times, losses = [], []
+    for i, (a, b, c) in enumerate(idx[:12]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(tr.train_step_resident(store.audio, store.pianoroll, store.onoff,
+                                                   a, b, c, tr.next_dropout_seed())))
+        times.append(time.perf_counter() - t)
+    step_s = statistics.median(times[2:])
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(np.isfinite(losses).all()), "scale phase: loss not finite")
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 120,
+          f"scale phase: dropout launches {dict(dk.LAUNCHES)} after 12 steps")
+    launches = dk.LAUNCHES["dropout_apply"] + dk.LAUNCHES["dropout_grad"]
+    dev_ms = bt.device_ms_per_step(lambda: [
+        tr.train_step_resident(store.audio, store.pianoroll, store.onoff, a, b, c, 7)
+        for a, b, c in idx[12:]], 3)
+    print(f"scale: warm resident step (batch 16, {SCALE_CHUNKS} x {len(SCALE_STYLES)} store) "
+          f"times s {[round(x, 4) for x in times]}: median {step_s:.4f} s, "
+          f"{16 * 860 / step_s:.0f} frames/s, device {dev_ms:.2f} ms/step, busy "
+          f"{100 * dev_ms / (step_s * 1e3):.1f} %, max_memory_allocated_GB={peak / 1e9:.3f} "
+          f"(store {hbm / 1e9:.3f} GB + model, Adam, activations)")
+    check(peak < 80e9, "scale phase does not fit the card")
+    del store
+    return launches, dict(step_s=step_s, device_ms=dev_ms, peak=peak)
 
 
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
@@ -1064,10 +1276,39 @@ def main() -> None:
     torch.cuda.empty_cache()
     check(not any(fc.LAUNCHES.values()), "serving launched the fused conv kernel")
     dropout_err, dropout_t = dropout_phase(torch, dk)
-    dropout_launches = train_phase(torch, dk, glue)
+    dropout_launches, tr, fed_step = train_phase(torch, dk, glue)
+    glue.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_launches, resident, fed = data_phase(torch, dk, tr, tmp)
+    scale_launches, scale = scale_phase(torch, dk, tr)
+    check(not any(glue.LAUNCHES.values()), "the data path launched the Griffin-Lim glue")
+    dropout_launches += data_launches + scale_launches
+    print(f"train step at batch 16, full width, bf16: phase 11 on a staged batch "
+          f"{fed_step['step_s']:.4f} s (device {fed_step['device_ms']:.2f} ms, busy "
+          f"{100 * fed_step['device_ms'] / (fed_step['step_s'] * 1e3):.1f} %); host-fed epochs "
+          f"{fed['step_s']:.4f} s (busy {100 * fed['device_ms'] / (fed['step_s'] * 1e3):.1f} %); "
+          f"resident epochs {resident['step_s']:.4f} s (busy "
+          f"{100 * resident['device_ms'] / (resident['step_s'] * 1e3):.1f} %); resident beside "
+          f"the 1,700 x 5 store {scale['step_s']:.4f} s (busy "
+          f"{100 * scale['device_ms'] / (scale['step_s'] * 1e3):.1f} %)")
+    from ml_music_style_transfer_tpu_torch.scripts import bench_train as bt
+
+    cuda = torch.device("cuda")
+    for data, r in (("host", fed), ("resident", scale)):
+        extra = dict(data=data, batch=16, width_mult=1.0, params=FULL_WIDTH_PARAMS)
+        print(binf.metric_line("train_step_spectrogram_frames_per_sec_per_chip",
+                               16 * 860 / r["step_s"], "frames/s", cuda, **extra))
+        print(binf.metric_line("train_step_s", r["step_s"], "s", cuda, **extra))
+        print(binf.metric_line("train_step_device_busy_share",
+                               r["device_ms"] / (r["step_s"] * 1e3), "", cuda,
+                               device_ms_per_step=round(r["device_ms"], 3), **extra))
+        print(binf.metric_line("train_step_peak_memory_GB", r["peak"] / 1e9, "GB", cuda, **extra))
+    print(binf.metric_line("preprocess_frames_per_sec", bt.preprocess_frames_per_sec(cuda),
+                           "frames/s", cuda, chunks=bt.PREPROCESS_CHUNKS, backend="device"))
     check(not any(fc.LAUNCHES.values()), "training launched the fused conv kernel")
-    print("fused conv kernel launches on the serving and training paths: 0 (the model "
+    print("fused conv kernel launches on the serving, training and data paths: 0 (the model "
           "keeps cuDNN's conv, as the JAX model keeps XLA's)")
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
     conv_launches, conv_err, conv_t = fused_conv_phase(torch, fc)

@@ -2,6 +2,7 @@
 ``config.py`` (``DSPConfig``, ``ModelConfig`` and ``TrainConfig``: same
 fields, defaults and ``scaled()`` rounding).
 
+``PIANO_SCORES`` and ``STYLES`` are preprocessing's defaults.
 ``TrainConfig`` keeps every field of the JAX one so configurations compare
 field by field; the options the port does not train with yet are refused
 by ``unsupported_train_options`` where a ``Trainer`` is built.
@@ -9,7 +10,7 @@ by ``unsupported_train_options`` where a ``Trainer`` is built.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Mapping, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +49,19 @@ class DSPConfig:
     def chunk_hop_samples(self) -> int:
         """Audio samples between chunk starts: ws * stride."""
         return self.ws * self.stride
+
+
+# Train/test MusicNet song-id splits and timbre styles, preprocessing's
+# defaults (reference: preprocessing/preprocess.py:28-36).
+PIANO_SCORES: Mapping[str, Tuple[int, ...]] = {
+    "train": (
+        2240, 2530, 1763, 2308, 2533, 1772, 2444, 2478,
+        2509, 1776, 1749, 2486, 2487, 2678, 2490, 2492, 2527,
+    ),  # 2491 is dropped in the reference (errors out; preprocess.py:32)
+    "test": (2533, 1760),
+}
+
+STYLES: Tuple[str, ...] = ("cuba", "aliciakeys", "gentleman", "harpsichord", "upright")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,3 +1,4 @@
-"""Data layer: audio IO, the HDF5 reader and the in-memory chunk dataset
-(preprocessing, the native loader and the device store arrive later)."""
-from . import audio_io, dataset, hdf5_store  # noqa: F401
+"""Data layer: audio IO, chunking, the HDF5 store, MusicNet curation,
+preprocessing, the in-memory chunk dataset with its native batch assembler,
+and the device-resident store."""
+from . import audio_io, chunking, dataset, hdf5_store  # noqa: F401

@@ -10,7 +10,9 @@
 
 ``ChunkDataset(path)`` reads an HDF5 split (needs h5py);
 ``ChunkDataset.from_arrays(raw, seed)`` builds from the dict that
-``load_dataset`` returns, for callers that hold the arrays already.
+``load_dataset`` (or ``preprocess.get_arrays``) returns, for callers that
+hold the arrays already. ``native_assembler`` gives the split's C++ batch
+assembler (``data/fastloader.py``), which draws in its own order.
 """
 from __future__ import annotations
 
@@ -61,6 +63,19 @@ class ChunkDataset:
                 "preprocess with a style set present for every song"
             )
         self.rng = np.random.default_rng(seed)
+        self._native: dict = {}
+
+    def native_assembler(self, batch_size: int, pin_memory: bool = False):
+        """The split's native (C++) slot-ring batch assembler for
+        ``batch_size``, cached; ``pin_memory`` page-locks its slots for
+        non-blocking copies to the card. Raises if the library cannot be
+        built or loaded; there is no Python fallback here."""
+        key = (batch_size, pin_memory)
+        if key not in self._native:
+            from .fastloader import NativeBatchAssembler
+
+            self._native[key] = NativeBatchAssembler(self, batch_size, pin_memory=pin_memory)
+        return self._native[key]
 
     def assemble(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
         """One batch for chunk indices ``idx`` (train.py:76-101): per item a

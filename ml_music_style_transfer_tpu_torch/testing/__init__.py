@@ -1,2 +1,3 @@
-"""Synthetic inputs for the serving daemon's warm-up, demos and tests."""
-from . import synthetic  # noqa: F401
+"""Synthetic inputs (songs, renderings, dataset directories) and the quality
+gate's style-discrimination measure."""
+from . import quality, synthetic  # noqa: F401

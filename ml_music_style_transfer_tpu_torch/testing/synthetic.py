@@ -1,16 +1,21 @@
-"""Synthetic MIDI and audio for the daemon's warm-up, demos and tests.
+"""Synthetic MIDI, audio and datasets for the daemon's warm-up, demos,
+benchmarks, the quality gate and tests.
 
-The port's own copy of ``random_song`` and ``render_notes`` from the JAX
-package's ``testing/synthetic.py``: a random diatonic piano part, and its
-additive-synthesis rendering with a style-specific timbre. Writing a whole
-synthetic dataset directory (``make_dataset_dir``) comes with the data path.
+The port's own copy of the JAX package's ``testing/synthetic.py``: a random
+diatonic piano part (``random_song``), its additive-synthesis rendering
+with a style-specific timbre (``render_notes``), and a whole dataset
+directory in preprocessing's naming contract (``make_dataset_dir``). One
+seed gives the same MIDI and WAV bytes in both packages.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
 
+from ..data.audio_io import write_wav
+from ..midi import writer as midi_writer
 from ..midi.parser import Note
 
 # harmonic amplitude profile + amplitude decay rate per style
@@ -121,3 +126,26 @@ def render_notes(
     else:
         raise ValueError(f"unknown normalize {normalize!r}")
     return y.astype(np.float32)
+
+
+def make_dataset_dir(
+    out_dir: str,
+    song_ids: Sequence[int],
+    styles: Sequence[str] = tuple(STYLE_TIMBRES),
+    duration: float = 20.0,
+    sr: int = 44100,
+    seed: int = 0,
+    normalize: str = "peak",
+) -> str:
+    """Write ``{id}_mixcraft.mid`` + ``{id}_{style}.wav`` per song into
+    ``out_dir``: the naming contract preprocessing reads (reference
+    preprocess.py:100 ``{id}*{style}.wav``, :140 ``{id}*mixcraft.mid``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for song_id in song_ids:
+        notes = random_song(rng, duration)
+        midi_writer.save(os.path.join(out_dir, f"{song_id}_mixcraft.mid"), notes)
+        for style in styles:
+            y = render_notes(notes, style, sr, duration, normalize=normalize)
+            write_wav(os.path.join(out_dir, f"{song_id}_{style}.wav"), y, sr)
+    return out_dir

@@ -4,13 +4,16 @@ flags, plus ``--device`` (default ``cuda``; with no card it fails).
     python -m ml_music_style_transfer_tpu_torch.train.cli \
         -data-dir PATH_BASENAME -exp-name NAME [-epochs N] [-test-freq N] \
         [--batch-size N] [--n-train-read N] [--n-test-read N] [--resume] \
-        [--width-mult F] [--spectral-loss W] [--stream-bf16] [--device D]
+        [--width-mult F] [--spectral-loss W] [--stream-bf16] [--device-resident] \
+        [--device D]
 
-Reading the HDF5 dataset needs ``h5py``. The flags of options the port does
-not run yet (a mesh > 1, --device-resident, --ckpt-format msgpack/orbax,
-the Adam/grad dtypes, clipping, warmup, EMA, grad-accum, ZeRO and
---debug-nans) are accepted and refused with ``NotImplementedError`` naming
-the ROADMAP item that brings them. Reference CLI: model/train.py:211-220.
+Reading the HDF5 dataset needs ``h5py``. ``--device-resident`` keeps the
+train split on the card (a file preprocessed with ``--store-audio``) and
+assembles each batch there. The flags of options the port does not run yet
+(a mesh > 1, --store-sharding data, --ckpt-format msgpack/orbax, the
+Adam/grad dtypes, clipping, warmup, EMA, grad-accum, ZeRO and --debug-nans)
+are accepted and refused with ``NotImplementedError`` naming the ROADMAP
+item that brings them. Reference CLI: model/train.py:211-220.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--stream-bf16", action="store_true",
                    help="upload host batches as bfloat16 (halves host->device bytes)")
     p.add_argument("--device-resident", action="store_true",
-                   help="keep the train split on the card (not ported yet)")
+                   help="keep the train split on the device and gather each batch "
+                        "there (needs preprocessing with --store-audio)")
     p.add_argument("--adam-mu-dtype", choices=("float32", "bfloat16"), default=None)
     p.add_argument("--adam-nu-dtype", choices=("float32", "bfloat16"), default=None)
     p.add_argument("--grads-dtype", choices=("float32", "bfloat16"), default=None)
@@ -58,7 +62,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--ema-decay", type=float, default=None)
     p.add_argument("--store-sharding", choices=("replicated", "data"), default="replicated",
-                   help="device-resident store placement (with --device-resident)")
+                   help="device-resident store placement on a mesh ('data' waits for "
+                        "multi-device)")
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--zero-opt", action="store_true")
     p.add_argument("--ckpt-format", choices=("torch", "msgpack", "orbax"), default="torch",
@@ -95,7 +100,7 @@ def main(argv=None) -> None:
         stream_dtype=torch.bfloat16 if args.stream_bf16 else None,
         device=args.device,
     ).fit(args.data_dir, resume=args.resume, device_resident=args.device_resident,
-          checkpoint_format=args.ckpt_format)
+          checkpoint_format=args.ckpt_format, store_sharding=args.store_sharding)
 
 
 if __name__ == "__main__":

@@ -45,7 +45,10 @@ def test_scan_covers_the_package_and_the_smoke_script():
     assert "chip_smoke.py" in rel and os.path.exists(os.path.join(ROOT, "chip_smoke.py"))
     assert f"{PKG}/ops/kernels/gl_glue.py" in rel and len(rel) > 15
     for new in ("infer/bulk.py", "parallel/time_shard.py", "testing/synthetic.py",
-                "scripts/serve.py", "scripts/bench_inference.py"):
+                "scripts/serve.py", "scripts/bench_inference.py", "scripts/bench_train.py",
+                "scripts/quality_gate.py", "data/preprocess.py", "data/device_store.py",
+                "data/fastloader.py", "data/chunking.py", "data/musicnet.py",
+                "ops/pianoroll.py", "testing/quality.py"):
         assert f"{PKG}/{new}" in rel
 
 
@@ -61,7 +64,10 @@ def test_rule_catches_the_jax_package_but_not_the_port():
     f"{PKG}.train.cli", f"{PKG}.train.loop", f"{PKG}.data.dataset", f"{PKG}.ops.mel",
     f"{PKG}.ops.kernels.fused_conv", f"{PKG}.scripts.bench_fused_conv",
     f"{PKG}.infer.bulk", f"{PKG}.parallel.time_shard", f"{PKG}.testing.synthetic",
-    f"{PKG}.scripts.serve", f"{PKG}.scripts.bench_inference"])
+    f"{PKG}.scripts.serve", f"{PKG}.scripts.bench_inference",
+    f"{PKG}.scripts.bench_train", f"{PKG}.scripts.quality_gate", f"{PKG}.data.preprocess",
+    f"{PKG}.data.device_store", f"{PKG}.data.fastloader", f"{PKG}.data.chunking",
+    f"{PKG}.data.musicnet", f"{PKG}.ops.pianoroll", f"{PKG}.testing.quality"])
 def test_modules_import_without_nvcc_or_a_card(module):
     """Importing builds nothing: kernels compile at their first launch."""
     importlib.import_module(module)

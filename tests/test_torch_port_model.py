@@ -92,6 +92,32 @@ class TestForwardParity:
         assert got.shape == (1, 1025, 860)
         _assert_close(got, want)
 
+    def test_bf16_forward_matches_jax_bf16(self, flax_model):
+        """The card serves the bfloat16 default (``compute_dtype``), and bf16
+        rounds at other places in XLA and ATen. So the two bf16 forwards,
+        JAX params carried across, are held to the distance bf16 itself puts
+        between JAX's bf16 and float32 forwards (width 1/16, T = 860, batch
+        1, output peak 4.76; measured: mean |port - JAX| 0.049 against JAX's
+        bf16-vs-f32 0.081, and the port's own bf16-vs-f32 0.082):
+          - mean |port_bf16 - jax_bf16| <= mean |jax_bf16 - jax_f32|;
+          - mean |port_bf16 - port_f32| <= 1.25 x mean |jax_bf16 - jax_f32|."""
+        jmodel, params = flax_model
+        midi, spec, onoff = _inputs(batch=1)
+        jbf16 = JPerformanceNet(JModelConfig(width_mult=1 / 16, compute_dtype="bfloat16"))
+        j32 = np.asarray(jmodel.apply(params, midi, spec, onoff), np.float64)
+        j16 = np.asarray(jbf16.apply(params, midi, spec, onoff), np.float64)
+        outs = {}
+        for dtype in ("float32", "bfloat16"):
+            model = build_model(ModelConfig(width_mult=1 / 16, compute_dtype=dtype),
+                                from_jax_params(params), "cpu")
+            with torch.no_grad():
+                outs[dtype] = model(*map(torch.from_numpy, (midi, spec, onoff))).double().numpy()
+        p16, p32 = outs["bfloat16"], outs["float32"]
+        jax_gap = np.abs(j16 - j32).mean()
+        assert 0.0 < jax_gap and np.isfinite(p16).all() and p16.shape == j16.shape
+        assert np.abs(p16 - j16).mean() <= jax_gap
+        assert np.abs(p16 - p32).mean() <= 1.25 * jax_gap
+
     def test_training_forward_waits_for_the_training_slice(self, flax_model):
         """The training slice has landed: a training forward needs a
         dropout seed, is reproducible from it, and drops activations."""

@@ -373,14 +373,30 @@ class TestFit:
         assert y.ndim == 1 and len(y) > 44100 and np.all(np.isfinite(y))
 
     def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path):
+        """The device-resident path (item 6) has landed: ``fit`` and the
+        four resident methods run on a file without audio as far as that
+        allows (the store names --store-audio); items 7, 9 and 10 still
+        raise."""
         tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2), exp_root=str(tmp_path),
                      device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(ValueError, match="store-audio"):
             tr.fit(tiny_h5, device_resident=True)
-        for name in ("train_step_resident", "eval_step_resident", "train_epoch_resident",
-                     "evaluate_resident"):
-            with pytest.raises(NotImplementedError, match="item 6"):
-                getattr(tr, name)()
+        from ml_music_style_transfer_tpu_torch.data.device_store import DeviceDataStore
+        from ml_music_style_transfer_tpu_torch.data.hdf5_store import load_dataset
+
+        raw = load_dataset(tiny_h5 + "_train.hdf5")
+        raw = {k: v for k, v in raw.items() if not k.startswith("spec_")}
+        raw["audio_cuba"] = np.random.default_rng(0).standard_normal(
+            (raw["pianoroll"].shape[0], 219904)).astype(np.float32) * 0.05
+        store = DeviceDataStore.from_arrays(raw, device="cpu")
+        tr.init_state(0)
+        args = (store.audio, store.pianoroll, store.onoff) + next(store.draw_epoch_indices(2))
+        assert np.isfinite(float(tr.train_step_resident(*args, 1)))
+        assert np.isfinite(float(tr.eval_step_resident(*args)))
+        assert np.isfinite(tr.train_epoch_resident(store, 0))
+        assert np.isfinite(tr.evaluate_resident(store))
+        with pytest.raises(NotImplementedError, match="item 9"):
+            tr.fit(tiny_h5, store_sharding="data")
         with pytest.raises(NotImplementedError, match="item 7"):
             tr.fit(tiny_h5, checkpoint_format="msgpack")
         for flags in (["--debug-nans"], ["--mesh-data", "2"], ["--grad-accum", "2"]):
