@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and data paths and its
-fused conv-block kernel on one NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's serving, training and data paths, its
+optimizer options and checkpoints, the autoencoder family and its fused
+conv-block kernel on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -90,6 +91,26 @@ scipy and the standard library. Phases, each reported on its own lines:
      ``metric`` lines of ``scripts/bench_train.py`` under its names, for
      the host-fed (phase 13) and the resident (phase 14) step, and
      ``preprocess_frames_per_sec``;
+  15. optimizer options at full width (after phase 14's store and phase
+     11's trainer are freed): a ``Trainer`` with bf16 Adam moments, bf16
+     gradients, clipping at 1.0, 4 warmup steps, an EMA (0.999) and
+     ``grad_accum=2`` takes four microbatch calls on seeded chunks: 10 + 10
+     dropout launches per call, the weights bit-unchanged after the first,
+     two updates, bf16 moments, an EMA apart from the weights; peak memory.
+     ``{params, ema_params, epoch}`` is written as the JAX package's flax
+     msgpack (5.86 GB), read back and uploaded (bit-equal, GB/s), then a
+     30 s request is served from that file with ``use_ema`` twice (first,
+     warm) and once from the same EMA weights in memory: 300 launches of
+     each glue kernel per request, three equal waveforms; the file is
+     deleted. Last, the train step with plain fused float32 Adam against
+     compact bf16 Adam on that model, in turns (fused, compact, compact,
+     fused; 10 + 10 dropout launches per step), with each optimizer step
+     alone timed by CUDA events beside its bytes bound;
+  16. the autoencoder family at ``bench.py``'s configuration (n_bins 128,
+     width 256, batch 32, T 860, bf16): ``autoencoder_spectral_step_ms``
+     by slope (12 steps minus 2, over 10), losses finite and falling over
+     the timed steps, no launch of any hand-written kernel, and a profile
+     of 3 steps;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -105,9 +126,10 @@ scipy and the standard library. Phases, each reported on its own lines:
 Lines starting ``metric`` carry the serving system's numbers under the
 names ``scripts/bench_inference.py`` prints, and the train step's under
 ``scripts/bench_train.py``'s. The glue kernels' ``launches`` in the
-kernels' JSON record sum their counts over phases 4 and 6-9, the dropout
-kernel's over phases 11 (12 steps), 13 (the resident epoch and the
-evaluation) and 14 (12 steps). The
+kernels' JSON record sum their counts over phases 4, 6-9 and 15 (three
+requests), the dropout kernel's over phases 11 (12 steps), 13 (the
+resident epoch and the evaluation), 14 (12 steps) and 15 (4 microbatch
+calls and 24 timed steps). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -1099,6 +1121,246 @@ def scale_phase(torch, dk, tr):
     return launches, dict(step_s=step_s, device_ms=dev_ms, peak=peak)
 
 
+# ---- phase 15: the optimizer options at full width ----------------------------
+
+OPTIONS = dict(adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16", grads_dtype="bfloat16",
+               grad_clip_norm=1.0, warmup_steps=4, ema_decay=0.999, grad_accum=2)
+TIMED_STEPS = 6  # per optimizer in each of four turns; the first two of each are not used
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def options_phase(torch, dk, glue, binf, tmp):
+    """Phase 15: a Trainer with every optimizer option at full width, bf16,
+    batch 16: four microbatch calls (two updates), the first leaving every
+    weight bit-unchanged; peak memory; the train step with plain fused
+    Adam against compact bf16 Adam on one model, in turns; the
+    {params, ema_params, epoch} msgpack written, read back bit-equal and
+    timed, then served from the file with use_ema (a warm 30 s request,
+    300 launches of each glue kernel) and held equal to the same EMA
+    weights served from memory. Returns (dropout launches, glue launches
+    per kernel)."""
+    from ml_music_style_transfer_tpu_torch.compat.weights import to_jax_params
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.data.audio_io import write_wav
+    from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.midi import Note
+    from ml_music_style_transfer_tpu_torch.midi import writer as midi_writer
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train import optim
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, device_prefetch
+
+    cuda = torch.device("cuda")
+    cfg = TrainConfig(batch_size=16, seed=0, **OPTIONS)
+    tr = Trainer(ModelConfig(), cfg, device="cuda")
+    tr.init_state(0)
+    opt = tr.optimizer
+    check(isinstance(opt, optim.TrainOptimizer) and isinstance(opt.adam, optim.CompactAdam),
+          f"options: optimizer {type(opt).__name__} is not the compact chain")
+    params = list(tr.model.parameters())
+    ds = ChunkDataset.from_arrays(host_arrays(32, seed=15), seed=0)
+    batches = list(device_prefetch(ds.epoch_batches(16), cuda))
+    w0 = [p.detach().clone() for p in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dk.reset_launches()
+    times, losses = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(tr.train_step(batches[i % 2], tr.next_dropout_seed())))
+        times.append(time.perf_counter() - t)
+        got = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
+        check(got == (10 * (i + 1),) * 2, f"options call {i}: dropout launches {got}, want 10 + 10 "
+              "per microbatch call")
+        if i == 0:
+            check(all(torch.equal(p, w) for p, w in zip(params, w0)),
+                  "options: the first microbatch call changed the weights")
+        if i == 1:
+            check(not all(torch.equal(p, w) for p, w in zip(params, w0)),
+                  "options: the second microbatch call applied no update")
+    del w0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dk.LAUNCHES["dropout_apply"] + dk.LAUNCHES["dropout_grad"]
+    count, mu, nu = opt.moments()
+    ema = optim.get_param_ema(opt)
+    ema_gap = max(float((e - p.detach()).abs().max()) for e, p in zip(ema, params))
+    print(f"options: {OPTIONS}: 4 microbatch calls losses {[round(x, 6) for x in losses]}, "
+          f"s {[round(x, 4) for x in times]} (calls 1 and 3 accumulate, 2 and 4 apply); "
+          f"updates {count}, warmup count {opt.warmup_count}, mini-step {opt.mini_step}; "
+          f"moments {mu[0].dtype}/{nu[0].dtype}; max |ema - params| {ema_gap:.3e}; "
+          f"max_memory_allocated_GB={peak / 1e9:.3f}")
+    check(bool(np.isfinite(losses).all()), "options: loss not finite")
+    check(count == 2 and opt.warmup_count == 2 and opt.mini_step == 0,
+          f"options: {count} updates, warmup count {opt.warmup_count}, mini-step {opt.mini_step}")
+    check(all(m.dtype == torch.bfloat16 for m in mu + nu), "options: moments are not bf16")
+    check(ema_gap > 0.0, "options: the EMA equals the weights")
+    print(binf.metric_line("train_step_peak_memory_GB", peak / 1e9, "GB", cuda, batch=16,
+                           width_mult=1.0, options="all"))
+
+    # {params, ema_params, epoch} as the JAX package's msgpack, read back
+    state = {"params": to_jax_params(tr.model.state_dict()),
+             "ema_params": to_jax_params(tr.ema_state_dict()), "epoch": 1}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = ckpt.save_checkpoint(tmp, 1, state, fmt="msgpack")
+    write_s = time.perf_counter() - t
+    size = os.path.getsize(path)
+    t = time.perf_counter()
+    back = [x.to(cuda) if isinstance(x, torch.Tensor) else x
+            for x in _leaves(ckpt.restore_checkpoint(path))]
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t
+    want = list(_leaves(state))
+    check(len(back) == len(want) and all(
+        (torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b)
+        for a, b in zip(back, want)), "options: msgpack read back differs")
+    print(f"options: msgpack {{params, ema_params, epoch}} {size} bytes ({size / 1e9:.3f} GB): "
+          f"written in {write_s:.3f} s ({size / 1e9 / write_s:.3f} GB/s), read and uploaded in "
+          f"{read_s:.3f} s ({size / 1e9 / read_s:.3f} GB/s), bit-equal")
+    print(binf.metric_line("msgpack_read_GB_per_s", size / 1e9 / read_s, "GB/s", cuda,
+                           bytes=size, what="read + upload to the card"))
+    del back, want, state
+
+    # the EMA weights served from the file and from memory
+    rng = np.random.default_rng(15)
+    notes = make_song(rng, 30.0, Note)
+    midi, wav = os.path.join(tmp, "ema.mid"), os.path.join(tmp, "ema.wav")
+    midi_writer.save(midi, notes)
+    write_wav(wav, render(notes, 30.0))
+    synth_mod.clear_caches()
+    gl = 0
+    t = time.perf_counter()
+    from_file = synth_mod.AudioSynthesizer(tmp, midi, wav, model_cfg=ModelConfig(),
+                                           checkpoint_path=path, use_ema=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    waves = {}
+    for what, synth in (("file, first", from_file), ("file, warm", from_file),
+                        ("memory", synth_mod.AudioSynthesizer(
+                            tmp, midi, wav, model_cfg=ModelConfig(), params=tr.ema_state_dict(),
+                            device="cuda"))):
+        glue.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        waves[what] = synth.synthesize_waveform(n_iter=N_ITER)
+        dt = time.perf_counter() - t
+        gl += counted(glue, N_ITER, f"options: EMA request ({what})")
+        print(f"options: 30 s request, use_ema, weights from {what}: {dt:.4f} s")
+        if what == "file, warm":
+            print(binf.metric_line("serving_s_per_30s_clip", dt, "s", cuda, midi_s=30.0,
+                                   n_iter=N_ITER, request="use_ema from msgpack (warm)"))
+    os.remove(path)
+    y = waves["file, warm"]
+    check(y.shape == (midi_frames(midi) * 256,) and bool(np.isfinite(y).all()),
+          "options: EMA waveform shape or values")
+    check(np.array_equal(y, waves["memory"]) and np.array_equal(y, waves["file, first"]),
+          "options: the EMA served from the msgpack differs from the EMA served from memory")
+    print(f"options: served the EMA weights from the msgpack (model built in {load_s:.3f} s, "
+          "only 'ema_params' read): waveform equal to the same EMA served from memory")
+    synth_mod.clear_caches()
+    del from_file, synth
+
+    # the train step, plain fused float32 Adam against compact bf16 Adam,
+    # on this model, in turns
+    named = list(tr.model.named_parameters())
+    optimizers = {"fused": optim.build_optimizer(named, TrainConfig(), 1e-3, cuda),
+                  "compact": optim.build_optimizer(
+                      named, TrainConfig(adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16"),
+                      1e-3, cuda)}
+    step_s = {k: [] for k in optimizers}
+    opt_ms = {k: [] for k in optimizers}
+    dk.reset_launches()
+    for name in ("fused", "compact", "compact", "fused"):
+        tr.optimizer = optimizers[name]
+        for i in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.train_step(batches[0], tr.next_dropout_seed())
+            torch.cuda.synchronize()
+            if i >= 2:
+                step_s[name].append(time.perf_counter() - t)
+        opt_ms[name].append(cuda_ms(tr.optimizer.step, n=10, warmup=2))
+    # read g, p, m, v and write p, m, v once: 7 x 4 B per parameter in
+    # float32, 4 + 4 + 2 + 2 + 4 + 2 + 2 = 20 B with bf16 moments
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    opt_bound = {"fused": bound_ms(28 * n_params, 0)[0], "compact": bound_ms(20 * n_params, 0)[0]}
+    n_steps = 4 * TIMED_STEPS
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 10 * n_steps,
+          f"options: dropout launches {dict(dk.LAUNCHES)} after {n_steps} timed steps")
+    launches += 20 * n_steps
+    med = {k: statistics.median(v) for k, v in step_s.items()}
+    print(f"options: train step (batch 16, full width, bf16) fused f32 Adam {med['fused']:.4f} s "
+          f"(steps {[round(x, 4) for x in step_s['fused']]}) vs compact bf16 Adam "
+          f"{med['compact']:.4f} s (steps {[round(x, 4) for x in step_s['compact']]}); "
+          f"optimizer step alone (CUDA events, 10 steps) fused "
+          f"{[round(x, 3) for x in opt_ms['fused']]} ms vs compact "
+          f"{[round(x, 3) for x in opt_ms['compact']]} ms (bytes bounds {opt_bound['fused']:.3f} "
+          f"and {opt_bound['compact']:.3f} ms at 28 and 20 B per parameter)")
+    for name, dt in (("fused", "float32"), ("compact", "bfloat16")):
+        print(binf.metric_line("train_step_s", med[name], "s", cuda, batch=16, width_mult=1.0,
+                               adam_mu_dtype=dt, adam_nu_dtype=dt, grads_dtype="float32",
+                               optimizer_step_ms=round(statistics.median(opt_ms[name]), 3)))
+    del tr, optimizers, opt, mu, nu, ema, params, named, batches
+    return launches, gl
+
+
+# ---- phase 16: the autoencoder family -------------------------------------------
+
+def autoencoder_phase(torch, dk, glue, fc, binf):
+    """Phase 16: ``bench.py``'s autoencoder extra (n_bins 128, width 256,
+    batch 32, T 860, bf16) through ``bench_train.autoencoder_step_ms``:
+    finite losses that fall over the timed steps, no launch of any
+    hand-written kernel (the JAX autoencoder reaches no Pallas kernel)."""
+    from ml_music_style_transfer_tpu_torch.scripts import bench_train as bt
+
+    cuda = torch.device("cuda")
+    for mod in (dk, glue, fc):
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r = bt.autoencoder_step_ms(cuda)
+    peak = torch.cuda.max_memory_allocated()
+    ls = r["losses"]
+    print(f"autoencoder: SpectrogramAutoencoder(n_bins={bt.AE_BINS}, width={bt.AE_WIDTH}) "
+          f"params={r['params']}, batch {bt.AE_BATCH}, T {bt.AE_T}, bf16: "
+          f"{r['ms']:.3f} ms per step (slope of 12 vs 2 steps), losses {ls[0]:.6f} -> {ls[-1]:.6f} "
+          f"over the timed steps, max_memory_allocated_GB={peak / 1e9:.3f}")
+    check(bool(np.isfinite(ls).all()), "autoencoder: loss not finite")
+    check(ls[-1] < ls[0], f"autoencoder: loss did not fall: {ls[0]} -> {ls[-1]}")
+    for mod in (dk, glue, fc):
+        check(not any(mod.LAUNCHES.values()), f"autoencoder launched {dict(mod.LAUNCHES)}")
+    print("autoencoder: hand-written kernel launches 0 (fused conv, dropout, Griffin-Lim glue)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            r["step"]()
+        torch.cuda.synchronize()
+    rows = sorted(((dev_us(e) / 3e3, e.count // 3, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False) and "#" not in e.key),
+                  reverse=True)
+    device_ms = sum(ms for ms, _, _ in rows)
+    print(f"autoencoder: profile (3 steps): device {device_ms:.3f} ms/step in "
+          f"{sum(c for _, c, _ in rows)} kernels and copies, busy "
+          f"{100 * device_ms / r['ms']:.1f} % of the slope-timed step")
+    for ms, count, key in rows[:8]:
+        print(f"autoencoder: profile {ms:8.3f} ms/step {100 * ms / device_ms:5.1f} % x{count:<4d} "
+              f"{key[:90]}")
+    print(binf.metric_line("autoencoder_spectral_step_ms", r["ms"], "ms", cuda, n_bins=bt.AE_BINS,
+                           width=bt.AE_WIDTH, batch=bt.AE_BATCH, t=bt.AE_T, params=r["params"],
+                           dtype="bfloat16"))
+
+
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
 
 FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
@@ -1306,9 +1568,19 @@ def main() -> None:
     print(binf.metric_line("preprocess_frames_per_sec", bt.preprocess_frames_per_sec(cuda),
                            "frames/s", cuda, chunks=bt.PREPROCESS_CHUNKS, backend="device"))
     check(not any(fc.LAUNCHES.values()), "training launched the fused conv kernel")
-    print("fused conv kernel launches on the serving, training and data paths: 0 (the model "
-          "keeps cuDNN's conv, as the JAX model keeps XLA's)")
     del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        opt_dropout, opt_gl = options_phase(torch, dk, glue, binf, tmp)
+    dropout_launches += opt_dropout
+    gl_launches += opt_gl
+    check(not any(fc.LAUNCHES.values()), "the options phase launched the fused conv kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    autoencoder_phase(torch, dk, glue, fc, binf)
+    print("fused conv kernel launches on the serving, training, data, options and autoencoder "
+          "paths: 0 (the model keeps cuDNN's conv, as the JAX model keeps XLA's)")
     gc.collect()
     torch.cuda.empty_cache()
     conv_launches, conv_err, conv_t = fused_conv_phase(torch, fc)

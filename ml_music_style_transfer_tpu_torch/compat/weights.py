@@ -1,13 +1,24 @@
-"""Weights across frameworks: flax param trees and reference ``.tar`` files
--> the port's ``state_dict``.
+"""Weights and optimizer state across frameworks: flax param trees, optax
+state trees and reference ``.tar`` files <-> the port's ``state_dict``.
 
 The port's module names are the reference's ``state_dict`` keys, so a
 reference checkpoint is already a port state_dict. A flax PerformanceNet
 tree (the JAX package's) needs its key map and layout transposes; this is
 the port's own copy of the JAX package's ``compat/torch_export.py:32-63``:
-  - Conv kernel (k, in, out)          -> Conv1d weight (out, in, k)
-  - ConvTranspose kernel (k, in, out) -> ConvTranspose1d weight (in, out, k)
-  - Dense kernel (in, out)            -> Linear weight (out, in)
+  - Conv kernel (k, in, out)          <-> Conv1d weight (out, in, k)
+  - ConvTranspose kernel (k, in, out) <-> ConvTranspose1d weight (in, out, k)
+  - Dense kernel (in, out)            <-> Linear weight (out, in)
+Each map runs both ways (``from_jax_params``, ``to_jax_params``);
+``AUTOENCODER`` is the map of the autoencoder family.
+
+``from_jax_opt_state`` reads the optax state tree that the JAX ``Trainer``
+checkpoints (``inject_hyperparams(adam)``, alone or in a ``chain`` with
+``clip_by_global_norm``, ``scale_by_schedule`` and ``param_ema``, inside
+``MultiSteps`` where ``grad_accum > 1``; flax writes named tuples as
+dicts of their fields and tuples as dicts keyed "0", "1", ...) into the
+port's optimizer state (``train/optim.export_state``);
+``to_jax_opt_state`` writes the tree the JAX ``Trainer`` of a given
+``TrainConfig`` restores.
 """
 from __future__ import annotations
 
@@ -17,38 +28,50 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from ..config import TrainConfig
 
-def _conv_w(k) -> np.ndarray:
-    return np.asarray(k).transpose(2, 1, 0)  # (k,in,out) -> (out,in,k)
+# layout transposes, flax -> torch and torch -> flax
+_TO_TORCH = {"conv": lambda t: t.permute(2, 1, 0), "convT": lambda t: t.permute(1, 2, 0),
+             "lin": lambda t: t.t()}
+_TO_FLAX = {"conv": lambda t: t.permute(2, 1, 0), "convT": lambda t: t.permute(2, 0, 1),
+            "lin": lambda t: t.t()}
 
+# (regex on the flax module path, its torch key; regex on the torch key,
+# its flax path; layout)
+PERFORMANCE_NET = [
+    (r"^midi_down_(\d+)/Conv1x3_([01])/Conv_0$", lambda m: f"down_convs.{m[1]}.conv{int(m[2]) + 1}",
+     r"^down_convs\.(\d+)\.conv([12])$", lambda m: f"midi_down_{m[1]}/Conv1x3_{int(m[2]) - 1}/Conv_0",
+     "conv"),
+    (r"^audio_down_(\d+)/Conv1x3_([01])/Conv_0$",
+     lambda m: f"down_convs_audio.{m[1]}.conv{int(m[2]) + 1}",
+     r"^down_convs_audio\.(\d+)\.conv([12])$",
+     lambda m: f"audio_down_{m[1]}/Conv1x3_{int(m[2]) - 1}/Conv_0", "conv"),
+    (r"^onset_offset_encoder/down_(\d+)/Conv1x3_([01])/Conv_0$",
+     lambda m: f"onset_offset_encoder.down_convs.{m[1]}.conv{int(m[2]) + 1}",
+     r"^onset_offset_encoder\.down_convs\.(\d+)\.conv([12])$",
+     lambda m: f"onset_offset_encoder/down_{m[1]}/Conv1x3_{int(m[2]) - 1}/Conv_0", "conv"),
+    (r"^dense_concat_(\d+)/Dense_([01])$", lambda m: f"dense_concats.{m[1]}.fc{int(m[2]) + 1}",
+     r"^dense_concats\.(\d+)\.fc([12])$", lambda m: f"dense_concat_{m[1]}/Dense_{int(m[2]) - 1}",
+     "lin"),
+    (r"^up_(\d+)/ConvTranspose1dTorch_0$", lambda m: f"up_convs.{m[1]}.upconv",
+     r"^up_convs\.(\d+)\.upconv$", lambda m: f"up_{m[1]}/ConvTranspose1dTorch_0", "convT"),
+    (r"^up_(\d+)/Conv1x3_([01])/Conv_0$", lambda m: f"up_convs.{m[1]}.conv{int(m[2]) + 1}",
+     r"^up_convs\.(\d+)\.conv([12])$", lambda m: f"up_{m[1]}/Conv1x3_{int(m[2]) - 1}/Conv_0",
+     "conv"),
+    (r"^mbr_(\d+)/conv([12])_(\d+)/Conv_0$",
+     lambda m: f"MBRBlock{int(m[1]) + 1}.conv_list{m[2]}.{m[3]}",
+     r"^MBRBlock(\d+)\.conv_list([12])\.(\d+)$",
+     lambda m: f"mbr_{int(m[1]) - 1}/conv{m[2]}_{m[3]}/Conv_0", "conv"),
+    (r"^lastconv$", lambda m: "lastconv", r"^lastconv$", lambda m: "lastconv", "convT"),
+]
 
-def _convT_w(k) -> np.ndarray:
-    return np.asarray(k).transpose(1, 2, 0)  # (k,in,out) -> (in,out,k)
-
-
-def _lin_w(k) -> np.ndarray:
-    return np.asarray(k).T  # (in,out) -> (out,in)
-
-
-# (regex on the flattened flax module path, torch key template, kernel transform)
-_RULES = [
-    (re.compile(r"^midi_down_(\d+)/Conv1x3_([01])/Conv_0$"),
-     lambda m: f"down_convs.{m.group(1)}.conv{int(m.group(2)) + 1}", _conv_w),
-    (re.compile(r"^audio_down_(\d+)/Conv1x3_([01])/Conv_0$"),
-     lambda m: f"down_convs_audio.{m.group(1)}.conv{int(m.group(2)) + 1}", _conv_w),
-    (re.compile(r"^onset_offset_encoder/down_(\d+)/Conv1x3_([01])/Conv_0$"),
-     lambda m: f"onset_offset_encoder.down_convs.{m.group(1)}.conv{int(m.group(2)) + 1}",
-     _conv_w),
-    (re.compile(r"^dense_concat_(\d+)/Dense_([01])$"),
-     lambda m: f"dense_concats.{m.group(1)}.fc{int(m.group(2)) + 1}", _lin_w),
-    (re.compile(r"^up_(\d+)/ConvTranspose1dTorch_0$"),
-     lambda m: f"up_convs.{m.group(1)}.upconv", _convT_w),
-    (re.compile(r"^up_(\d+)/Conv1x3_([01])/Conv_0$"),
-     lambda m: f"up_convs.{m.group(1)}.conv{int(m.group(2)) + 1}", _conv_w),
-    (re.compile(r"^mbr_(\d+)/conv([12])_(\d+)/Conv_0$"),
-     lambda m: f"MBRBlock{int(m.group(1)) + 1}.conv_list{m.group(2)}.{m.group(3)}",
-     _conv_w),
-    (re.compile(r"^lastconv$"), lambda m: "lastconv", _convT_w),
+# models/autoencoder.py: the modules carry the flax module names
+AUTOENCODER = [
+    (r"^(down_0|down_1|bottleneck)/Conv1x3_([01])/Conv_0$", lambda m: f"{m[1]}.conv{int(m[2]) + 1}",
+     r"^(down_0|down_1|bottleneck)\.conv([12])$", lambda m: f"{m[1]}/Conv1x3_{int(m[2]) - 1}/Conv_0",
+     "conv"),
+    (r"^(up_0|up_1)$", lambda m: m[1], r"^(up_0|up_1)$", lambda m: m[1], "convT"),
+    (r"^head/Conv_0$", lambda m: "head", r"^head$", lambda m: "head/Conv_0", "conv"),
 ]
 
 
@@ -63,9 +86,21 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax PerformanceNet params (nested dicts of numpy arrays, with or
-    without the ``'params'`` wrapper) -> the port's float32 state_dict.
+def _tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    a = np.array(leaf)  # a copy: arrays from jax are read-only
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_jax_params(tree: Mapping[str, Any], rules=PERFORMANCE_NET, keep_dtype: bool = False,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """A flax param tree (nested dicts of numpy arrays or torch tensors,
+    with or without the ``'params'`` wrapper) -> the port's state_dict, in
+    float32 unless ``keep_dtype``. With ``device`` each leaf goes there
+    before its transpose (on the card, the transposes run there).
 
     Unmapped module paths raise KeyError, so a partial translation can never
     load silently.
@@ -78,19 +113,107 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         modules.setdefault(base, {})[name] = leaf
     state: Dict[str, torch.Tensor] = {}
     for base, leaves in modules.items():
-        for rx, key_fn, w_transform in _RULES:
-            m = rx.match(base)
+        for rx, key_fn, _, _, kind in rules:
+            m = re.match(rx, base)
             if m:
                 key = key_fn(m)
-                # np.array copies: arrays from jax are read-only views
-                state[f"{key}.weight"] = torch.from_numpy(np.array(
-                    w_transform(leaves["kernel"]), dtype=np.float32, order="C"))
-                state[f"{key}.bias"] = torch.from_numpy(np.array(
-                    leaves["bias"], dtype=np.float32, order="C"))
+                for name, tf in (("weight", _TO_TORCH[kind]), ("bias", lambda t: t)):
+                    t = _tensor(leaves["kernel" if name == "weight" else "bias"])
+                    t = tf(t.to(device) if device is not None else t)
+                    if not keep_dtype:
+                        t = t.float()
+                    state[f"{key}.{name}"] = t.contiguous()
                 break
         else:
             raise KeyError(f"unmapped flax param module: {base}")
     return state
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor], rules=PERFORMANCE_NET) -> dict:
+    """The port's state_dict (or any tree of tensors keyed by its names,
+    e.g. Adam moments) -> a flax param tree ``{"params": {...}}`` of
+    contiguous tensors in the flax layout, on the tensors' device and in
+    their dtype. Unmapped keys raise KeyError."""
+    out: dict = {}
+    for key, t in state.items():
+        base, name = key.rsplit(".", 1)
+        for _, _, rx, path_fn, kind in rules:
+            m = re.match(rx, base)
+            if m:
+                node = out
+                for part in path_fn(m).split("/"):
+                    node = node.setdefault(part, {})
+                leaf = _TO_FLAX[kind](t) if name == "weight" else t
+                node["kernel" if name == "weight" else "bias"] = leaf.detach().contiguous()
+                break
+        else:
+            raise KeyError(f"unmapped port param: {key}")
+    return {"params": out}
+
+
+def _i32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.int32)
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def from_jax_opt_state(tree: Mapping[str, Any], rules=PERFORMANCE_NET) -> dict:
+    """The optax state tree of a JAX ``Trainer`` checkpoint -> the port's
+    optimizer state (``train/optim.export_state``: lr, Adam count, mu, nu,
+    warmup count, EMA, accumulator, mini-step), tensors keyed by the port's
+    parameter names in their stored dtypes."""
+    params = lambda t: from_jax_params(t, rules, keep_dtype=True)  # noqa: E731
+    out = {"lr": None, "count": 0, "mu": None, "nu": None, "warmup_count": None, "ema": None,
+           "acc": None, "mini_step": None}
+    if "mini_step" in tree:  # optax.MultiSteps
+        out["mini_step"] = int(tree["mini_step"])
+        out["acc"] = params(tree["acc_grads"])
+        tree = tree["inner_opt_state"]
+    parts = [tree] if "hyperparams" in tree else [tree[str(i)] for i in range(len(tree))]
+    for part in parts:
+        if "hyperparams" in part:  # inject_hyperparams(adam)
+            out["lr"] = float(part["hyperparams"]["learning_rate"])
+            adam = part["inner_state"]["0"]
+            out["count"] = int(adam["count"])
+            out["mu"], out["nu"] = params(adam["mu"]), params(adam["nu"])
+        elif set(part) == {"count"}:  # scale_by_schedule (warmup)
+            out["warmup_count"] = int(part["count"])
+        elif set(part) == {"ema"}:  # param_ema
+            out["ema"] = params(part["ema"])
+        elif part:  # clip_by_global_norm's state is empty
+            raise ValueError(f"unknown optax state with fields {sorted(part)}")
+    if out["lr"] is None:
+        raise ValueError("no inject_hyperparams(adam) state in the optax tree")
+    return out
+
+
+def to_jax_opt_state(state: Mapping[str, Any], cfg: TrainConfig, rules=PERFORMANCE_NET) -> dict:
+    """The port's optimizer state -> the optax state tree that the JAX
+    ``Trainer`` built from ``cfg`` restores (the layout of its
+    ``self.tx``): scalars as 0-d int32/float32 arrays, trees in the flax
+    layout. ``optax.adam`` injects ``eps_root`` too; ``adam_compact``
+    (``cfg.adam_nu_dtype`` set) does not."""
+    params = lambda d: to_jax_params(d, rules)  # noqa: E731
+    hyper = {"b1": _f32(0.9), "b2": _f32(0.999), "eps": _f32(1e-8)}
+    if cfg.adam_nu_dtype is None:
+        hyper["eps_root"] = _f32(0.0)
+    hyper["learning_rate"] = _f32(state["lr"])
+    base = {"count": _i32(state["count"]), "hyperparams": hyper, "hyperparams_states": {},
+            "inner_state": {"0": {"count": _i32(state["count"]), "mu": params(state["mu"]),
+                                  "nu": params(state["nu"])}, "1": {}}}
+    chain = [{}] if cfg.grad_clip_norm is not None else []
+    chain.append(base)
+    if cfg.warmup_steps > 0:
+        chain.append({"count": _i32(state["warmup_count"])})
+    if cfg.ema_decay is not None:
+        chain.append({"ema": params(state["ema"])})
+    tx = base if len(chain) == 1 else {str(i): s for i, s in enumerate(chain)}
+    if cfg.grad_accum > 1:
+        tx = {"mini_step": _i32(state["mini_step"]), "gradient_step": _i32(state["count"]),
+              "inner_opt_state": tx, "acc_grads": params(state["acc"]), "skip_state": {}}
+    return tx
 
 
 def load_reference_checkpoint(path: str, compat_mbr_noop: bool = False

@@ -130,8 +130,8 @@ class TrainConfig:
     # optional multi-scale spectral loss (train/losses.py); 0 = L1 only
     spectral_loss_weight: float = 0.0
     spectral_loss_mode: str = "linlog"  # "linlog", "log" or "direct"
-    # Optimizer options of the JAX package that the port does not run yet
-    # (see unsupported_train_options); the defaults are plain f32 Adam.
+    # Optimizer options (train/optim.py); the defaults are plain f32 Adam.
+    # A mesh and ZeRO wait for multi-device (unsupported_train_options).
     adam_mu_dtype: str | None = None
     adam_nu_dtype: str | None = None
     grads_dtype: str | None = None
@@ -143,7 +143,6 @@ class TrainConfig:
     zero_opt: bool = False
 
 
-_OPTIMIZER_ITEM = "ROADMAP queue 1 item 7 (optimizer options)"
 _MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 9 (multi-device)"
 
 
@@ -151,13 +150,6 @@ def unsupported_train_options(cfg: TrainConfig) -> list[str]:
     """Each option of ``cfg`` the port does not train with yet, with the
     ROADMAP item that brings it; empty when ``cfg`` is fully supported."""
     checks = (
-        ("adam_mu_dtype", cfg.adam_mu_dtype is not None, _OPTIMIZER_ITEM),
-        ("adam_nu_dtype", cfg.adam_nu_dtype is not None, _OPTIMIZER_ITEM),
-        ("grads_dtype", cfg.grads_dtype is not None, _OPTIMIZER_ITEM),
-        ("grad_clip_norm", cfg.grad_clip_norm is not None, _OPTIMIZER_ITEM),
-        ("warmup_steps", cfg.warmup_steps > 0, _OPTIMIZER_ITEM),
-        ("ema_decay", cfg.ema_decay is not None, _OPTIMIZER_ITEM),
-        ("grad_accum", cfg.grad_accum > 1, _OPTIMIZER_ITEM),
         ("zero_opt", cfg.zero_opt, _MULTI_DEVICE_ITEM),
         ("mesh_shape", tuple(cfg.mesh_shape) != (1, 1), _MULTI_DEVICE_ITEM),
     )

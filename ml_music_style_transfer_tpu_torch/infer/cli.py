@@ -6,8 +6,8 @@ plus ``--device`` (default ``cuda``; with no card it fails).
 
 The experiment dir is ./experiments/{exp_name}; without ``--checkpoint`` the
 checkpoint of the best_epoch named by its hyperparams.json is loaded: the
-port's ``checkpoint-{best_epoch}.pt`` or the reference's ``.tar``
-(reference model/inference.py:112-124).
+port's ``checkpoint-{best_epoch}.pt``, the JAX package's ``.msgpack`` or the
+reference's ``.tar`` (reference model/inference.py:112-124).
 """
 from __future__ import annotations
 
@@ -30,10 +30,10 @@ def main(argv=None) -> None:
                    help="reproduce the reference MBRBlock's literal 2*x "
                         "behavior (forced automatically for .tar checkpoints)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="explicit checkpoint path (.pt or reference .tar); "
+                   help="explicit checkpoint path (.pt, JAX .msgpack or reference .tar); "
                         "default resolves via hyperparams.json best_epoch")
     p.add_argument("--use-ema", action="store_true",
-                   help="serve EMA weights (not ported yet)")
+                   help="serve the EMA weights a run with --ema-decay checkpointed")
     p.add_argument("--cond-mode", choices=("aligned", "center"), default="aligned",
                    help="'aligned': each MIDI tile conditions on the audio at "
                         "its own time position; 'center': one center 5s crop "

@@ -16,8 +16,11 @@ Everything after the WAV decode stays on the device; the host sees the
 waveform. The random Griffin-Lim phase comes from a ``torch.Generator``
 seeded 0, so the waveform differs from the JAX package's by design.
 Weights come from the experiment's best checkpoint: the port's own
-``checkpoint-{epoch}.pt`` (written by ``train/loop.py``) or a reference
-``.tar``, or from an in-memory state_dict.
+``checkpoint-{epoch}.pt`` (written by ``train/loop.py``), the JAX
+package's ``checkpoint-{epoch}.msgpack`` (read without flax, only its
+``params`` or ``ema_params`` tree) or a reference ``.tar``, or from an
+in-memory state_dict. ``use_ema=True`` serves the EMA weights that a run
+with ``ema_decay`` checkpointed.
 
 A serving process keeps its warm state at module level: ``_PARAMS_CACHE``
 holds the last two built, on-device, eval-mode models, so a second
@@ -28,8 +31,7 @@ overlaps the host work of one request with the card's work on the one
 before. Every host<->device crossing of the serving path goes through
 ``_stage``/``_fetch`` (``TRANSFER_LOG`` records them). The whole-clip path
 runs one forward over the whole clip (``parallel/time_shard.py``).
-Reading msgpack/orbax checkpoints, EMA weights and every multi-device
-option arrive in later slices.
+Orbax checkpoints and every multi-device option arrive in later slices.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..compat.weights import load_reference_checkpoint
+from ..compat.weights import from_jax_params, load_reference_checkpoint
 from ..config import DEFAULT_DSP, DSPConfig, ModelConfig
 from ..data import audio_io
 from ..device import resolve_device
@@ -56,7 +58,6 @@ from ..ops import stft as tstft
 from ..parallel import time_shard as tsh
 from ..train import checkpoint as ckpt
 
-EMA_ITEM = "ROADMAP queue 1 item 7 (optimizer options: EMA)"
 MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 9 (multi-device)"
 
 # ---- transfer seams -------------------------------------------------------
@@ -187,6 +188,22 @@ def build_model(model_cfg: ModelConfig, state_dict, device) -> PerformanceNet:
     return model.to(device).eval()
 
 
+def load_checkpoint_params(path: str, use_ema: bool = False, device="cpu"
+                           ) -> dict[str, torch.Tensor]:
+    """The served weights of a trained checkpoint as a state_dict: its
+    ``params``, or its ``ema_params`` with ``use_ema``. A ``.msgpack``
+    (JAX layout) is read one tree at a time, the rest skipped unread, and
+    translated on ``device``."""
+    key = "ema_params" if use_ema else "params"
+    state = ckpt.restore_checkpoint(path, keys=(key,))
+    if key not in state:
+        raise ValueError(f"checkpoint {path} has no {key!r} tree"
+                         + (" — was --ema-decay set during training?" if use_ema else ""))
+    if path.endswith(".msgpack"):
+        return from_jax_params(state[key], device=device)
+    return state[key]
+
+
 def _cond_tiles(spec: torch.Tensor, starts_cond: torch.Tensor, n_valid: int,
                 win: int) -> torch.Tensor:
     """Per-tile conditioning gather: tile i gets frames
@@ -228,8 +245,10 @@ class AudioSynthesizer:
     ):
         """``params``: a state_dict (torch tensors or numpy arrays, reference
         key names) to serve directly. Otherwise ``checkpoint_path`` (a port
-        ``.pt`` or a reference ``.tar``), or the experiment's best
-        checkpoint (``train/checkpoint.best_checkpoint``). The built model
+        ``.pt``, a JAX ``.msgpack`` or a reference ``.tar``), or the
+        experiment's best checkpoint (``train/checkpoint.best_checkpoint``).
+        ``use_ema``: serve the checkpoint's ``ema_params`` (a ``ValueError``
+        where it has none: the run did not set --ema-decay). The built model
         comes from ``_PARAMS_CACHE`` when the same checkpoint (unchanged
         mtime) or the same ``params`` object was served before; a reference
         ``.tar`` forces ``compat_mbr_noop=True`` and ``self.model_cfg`` is
@@ -248,10 +267,10 @@ class AudioSynthesizer:
         else:
             if checkpoint_path is None:
                 checkpoint_path, _ = ckpt.best_checkpoint(exp_dir)
-            if use_ema:
-                raise NotImplementedError(f"use_ema waits for {EMA_ITEM}")
             path = checkpoint_path
             is_tar = path.endswith(".tar")
+            if is_tar and use_ema:
+                raise ValueError("reference .tar checkpoints carry no EMA weights")
             if is_tar and not model_cfg.compat_mbr_noop:
                 # the reference's MBR conv weights are untrained (model.py:172)
                 print("note: reference .tar checkpoint — forcing "
@@ -262,8 +281,8 @@ class AudioSynthesizer:
             def build() -> PerformanceNet:
                 if is_tar:
                     state = load_reference_checkpoint(path, compat_mbr_noop=True)
-                else:  # a port-trained model, MBR blocks and all, served as trained
-                    state = ckpt.restore_checkpoint(path)["params"]
+                else:  # a trained model, MBR blocks and all, served as trained
+                    state = load_checkpoint_params(path, use_ema, dev)
                 return build_model(cfg, state, dev)
 
             key = (os.path.abspath(path), use_ema, os.path.getmtime(path), cfg, str(dev))

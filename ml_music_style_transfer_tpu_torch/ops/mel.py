@@ -1,9 +1,9 @@
-"""Mel-scale ops in PyTorch (the JAX package's ``ops/mel.py:19-51``).
+"""Mel-scale ops in PyTorch (the JAX package's ``ops/mel.py``).
 
-The filterbank is a constant built once on the host (NumPy, float64, then
-float32) and uploaded once per device, so a training step's spectral loss
-copies nothing to the card; applying it is one (mels x bins) matmul. MFCCs
-wait for a later slice.
+The filterbank and the DCT-II matrix are constants built once on the host
+(NumPy, float64, then float32) and uploaded once per device, so a training
+step's spectral loss copies nothing to the card; applying either is one
+matmul.
 """
 from __future__ import annotations
 
@@ -43,3 +43,31 @@ def melspectrogram_from_power(power_spec: torch.Tensor, sr: int = 44100, n_fft: 
     fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, power_spec.device)
     dt = torch.promote_types(power_spec.dtype, torch.float32)
     return torch.matmul(fb.to(dt), power_spec.to(dt))
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_const(n_out: int, n_in: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix (n_out, n_in), scipy.fft.dct(norm='ortho')."""
+    k = np.arange(n_out)[:, None]
+    n = np.arange(n_in)[None, :]
+    m = np.cos(np.pi * k * (2 * n + 1) / (2 * n_in)) * np.sqrt(2.0 / n_in)
+    m[0] /= np.sqrt(2.0)
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_device(n_out: int, n_in: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_dct_const(n_out, n_in)).to(device)
+
+
+def mfcc_from_power(power_spec: torch.Tensor, sr: int = 44100, n_fft: int = 2048,
+                    n_mfcc: int = 20, n_mels: int = 128) -> torch.Tensor:
+    """(..., bins, frames) power spectrogram -> (..., n_mfcc, frames) MFCCs
+    (librosa.feature.mfcc: the dB mel spectrogram, floored 80 dB below its
+    peak, then the orthonormal DCT-II over the mel axis; JAX
+    ``mel.py:64-81``)."""
+    mel = melspectrogram_from_power(power_spec, sr, n_fft, n_mels)
+    log_mel = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    log_mel = torch.maximum(log_mel, torch.amax(log_mel, dim=(-2, -1), keepdim=True) - 80.0)
+    dct = _dct_device(n_mfcc, n_mels, power_spec.device).to(log_mel.dtype)
+    return torch.matmul(dct, log_mel)

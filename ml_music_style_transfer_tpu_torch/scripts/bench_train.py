@@ -3,12 +3,19 @@ package's ``bench.py`` headline.
 
     python -m ml_music_style_transfer_tpu_torch.scripts.bench_train \\
         [--data host|resident] [--batch-size 16] [--epochs 3] \\
-        [--width-mult 1.0] [--device cuda]
+        [--width-mult 1.0] [--adam-mu-dtype float32|bfloat16] \\
+        [--adam-nu-dtype float32|bfloat16] [--grads-dtype float32|bfloat16] \\
+        [--model performance_net|autoencoder] [--device cuda]
 
 A full train step (forward in training mode with DenseConcat dropout,
-L1, backward, fused Adam with float32 moments) of a PerformanceNet
-(full width, 731,945,857 params, bfloat16 compute, seeded random weights)
-on seeded synthetic chunks, fed one of two ways:
+L1, backward, Adam) of a PerformanceNet (full width, 731,945,857 params,
+bfloat16 compute, seeded random weights) on seeded synthetic chunks. Adam
+is the fused float32-moment Adam unless ``--adam-mu-dtype`` /
+``--adam-nu-dtype`` / ``--grads-dtype`` ask for the compact one
+(``train/optim.py``); they default to float32, so the recorded series goes
+on, and each ``metric`` line names the three dtypes. ``bench.py`` times its
+headline with bfloat16 moments: pass both ``bfloat16`` for its setting.
+The step is fed one of two ways:
 
   - ``--data host``: ``Trainer.train_epoch`` over a ``ChunkDataset`` of
     spectrograms in host memory, batches from the native assembler staged
@@ -30,10 +37,16 @@ number, under ``bench.py``'s names:
     ``preprocess.spectrograms_from_chunks(backend="device")``, 860 frames
     each, upload and download included (best of 3).
 
-``bench.py``'s default bfloat16-moment Adam waits for the port's optimizer
-options (ROADMAP queue 1 item 7): this bench runs the Trainer's
-float32-moment Adam. ``--device cpu`` runs it at width 1/16 to check the
-script; its numbers are CPU numbers and no busy share is measured.
+``--model autoencoder`` times instead ``bench.py``'s autoencoder extra,
+``autoencoder_spectral_step_ms``: ``make_autoencoder_train_step`` of a
+``SpectrogramAutoencoder(n_bins=128, width=256)``, bf16, on 32 seeded
+log-power frames (860, 1025) uniform in [0, 3), after 3 warm-up steps, by
+slope: the seconds of 12 steps minus those of 2, over 10 (each run ended by
+reading its last loss back).
+
+``--device cpu`` runs either at a small size (width 1/16; the autoencoder
+at width 16, batch 2, T 64) to check the script; its numbers are CPU
+numbers and no busy share is measured.
 """
 from __future__ import annotations
 
@@ -143,6 +156,42 @@ def make_epoch(tr: Trainer, data: str, batch_size: int, device: torch.device, se
     raise ValueError(f"--data must be 'host' or 'resident', got {data!r}")
 
 
+AE_BINS, AE_WIDTH, AE_BATCH, AE_T = 128, 256, 32, 860  # bench.py's _ae_run
+
+
+def autoencoder_step_ms(device: torch.device, width: int = AE_WIDTH, batch: int = AE_BATCH,
+                        t: int = AE_T, seed: int = 0) -> dict:
+    """``autoencoder_spectral_step_ms`` as ``bench.py`` times it: 3 warm-up
+    steps, then (seconds of 12 steps - seconds of 2) / 10. Returns the ms,
+    the losses of the 2 + 12 timed steps, the parameter count and ``step``,
+    one more step on the same batch (for a profile)."""
+    from ..models import AutoencoderConfig, SpectrogramAutoencoder, make_autoencoder_train_step
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = SpectrogramAutoencoder(AutoencoderConfig(n_bins=AE_BINS, width=width),
+                                   device=device, generator=gen)
+    ae = make_autoencoder_train_step(model)
+    spec = torch.rand((batch, t, 1025), generator=gen, device=device) * 3.0
+    weight = torch.ones(batch, device=device)
+    for _ in range(3):
+        loss = ae.step(spec, weight)
+    float(loss)
+    losses = []
+
+    def run(n: int) -> float:
+        t0 = time.perf_counter()
+        ls = [ae.step(spec, weight) for _ in range(n)]
+        float(ls[-1])
+        dt = time.perf_counter() - t0
+        losses.extend(torch.stack(ls).tolist())
+        return dt
+
+    t_small, t_large = run(2), run(12)
+    return {"ms": (t_large - t_small) / 10 * 1e3, "losses": losses,
+            "params": sum(p.numel() for p in model.parameters()),
+            "step": lambda: ae.step(spec, weight)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -152,6 +201,10 @@ def main(argv=None) -> dict:
                     help=f"timed epochs of {STEPS_PER_EPOCH} steps after one warm-up epoch")
     ap.add_argument("--width-mult", type=float, default=None,
                     help="channel-width multiplier (default 1.0 on the card, 1/16 on the CPU)")
+    for flag in ("--adam-mu-dtype", "--adam-nu-dtype", "--grads-dtype"):
+        ap.add_argument(flag, choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--model", choices=("performance_net", "autoencoder"),
+                    default="performance_net")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu (checks the script)")
     args = ap.parse_args(argv)
@@ -166,8 +219,22 @@ def main(argv=None) -> dict:
         metrics[name] = value
         print(metric_line(name, value, unit, dev, **extra), flush=True)
 
+    if args.model == "autoencoder":
+        kw = {} if dev.type == "cuda" else dict(width=16, batch=2, t=64)
+        r = autoencoder_step_ms(dev, **kw)
+        report("autoencoder_spectral_step_ms", r["ms"], "ms", n_bins=AE_BINS,
+               width=kw.get("width", AE_WIDTH), batch=kw.get("batch", AE_BATCH),
+               t=kw.get("t", AE_T), params=r["params"], dtype="bfloat16",
+               loss_first=round(r["losses"][0], 6), loss_last=round(r["losses"][-1], 6))
+        print(json.dumps({"metrics": metrics, "device": str(dev),
+                          "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}))
+        return metrics
     bs = args.batch_size
-    tr = Trainer(ModelConfig(width_mult=width), TrainConfig(batch_size=bs, seed=0), device=dev)
+    dtypes = {k: getattr(args, k) for k in ("adam_mu_dtype", "adam_nu_dtype", "grads_dtype")}
+    tr = Trainer(ModelConfig(width_mult=width),
+                 TrainConfig(batch_size=bs, seed=0,
+                             **{k: None if v == "float32" else v for k, v in dtypes.items()}),
+                 device=dev)
     tr.init_state(0)
     n_params = sum(p.numel() for p in tr.model.parameters())
     run_epoch = make_epoch(tr, args.data, bs, dev)
@@ -177,7 +244,7 @@ def main(argv=None) -> dict:
     per_step = epoch_step_seconds(run_epoch, STEPS_PER_EPOCH, dev, args.epochs)
     step_s = statistics.median(per_step)
     extra = dict(data=args.data, batch=bs, width_mult=width, params=n_params,
-                 steps=STEPS_PER_EPOCH * args.epochs)
+                 steps=STEPS_PER_EPOCH * args.epochs, **dtypes)
     report("train_step_spectrogram_frames_per_sec_per_chip", bs * 860 / step_s, "frames/s",
            **extra)
     report("train_step_s", step_s, "s", epochs_s_per_step=[round(x, 5) for x in per_step],

@@ -39,7 +39,12 @@ infer/bulk.py). The response is one line with per-item results:
 
 Usage:
     python -m ml_music_style_transfer_tpu_torch.scripts.serve -exp-name NAME \\
-        [--width-mult F] [--checkpoint PATH] [--device cuda|cpu] < requests.jsonl
+        [--width-mult F] [--checkpoint PATH] [--use-ema] [--device cuda|cpu] \\
+        < requests.jsonl
+
+``--checkpoint`` (default: the experiment's best) may be a port ``.pt``, a
+JAX ``.msgpack`` or a reference ``.tar``; ``--use-ema`` serves the EMA
+weights of a run trained with ``--ema-decay``.
 """
 from __future__ import annotations
 
@@ -58,7 +63,7 @@ from ..config import ModelConfig
 from ..data import audio_io
 from ..device import resolve_device
 from ..infer import bulk
-from ..infer.synthesize import EMA_ITEM, MULTI_DEVICE_ITEM, AudioSynthesizer
+from ..infer.synthesize import MULTI_DEVICE_ITEM, AudioSynthesizer
 from ..midi import writer as midi_writer
 from ..testing import synthetic
 
@@ -243,7 +248,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("-exp-name", dest="exp_name", required=True)
     ap.add_argument("--width-mult", type=float, default=1.0)
-    ap.add_argument("--use-ema", action="store_true")
+    ap.add_argument("--use-ema", action="store_true",
+                    help="serve the EMA weights a run with --ema-decay checkpointed")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--exp-root", default="./experiments")
     ap.add_argument("--mesh-data", type=int, default=1,
@@ -262,8 +268,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.mesh_data > 1:
         raise NotImplementedError(f"--mesh-data {args.mesh_data} waits for {MULTI_DEVICE_ITEM}")
-    if args.use_ema:
-        raise NotImplementedError(f"--use-ema waits for {EMA_ITEM}")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # no request pays for nvcc: every kernel is built before stdin is read
@@ -276,7 +280,8 @@ def main(argv=None) -> int:
 
     def make_synth(midi, audio):
         return AudioSynthesizer(exp_dir, midi, audio, model_cfg=cfg,
-                                checkpoint_path=args.checkpoint, device=device)
+                                checkpoint_path=args.checkpoint, use_ema=args.use_ema,
+                                device=device)
 
     if args.warmup:
         warmup(make_synth, [float(d) for d in args.warmup.split(",") if d.strip()],

@@ -7,14 +7,21 @@ checkpoint inference loads (model/train.py:202-208, inference.py:120-122).
 This module keeps that contract (``ExperimentState`` writes the same field
 names) and the JAX package's resume path.
 
-The file format differs from the JAX package's on purpose. The JAX package
-writes flax msgpack (``checkpoint-{epoch}.msgpack``) or orbax directories;
-the machine that trains the port has neither flax nor msgpack nor orbax,
-so the port writes ``checkpoint-{epoch}.pt`` with ``torch.save``, holding
-the JAX state's keys: ``{"params": model state_dict (reference key names),
-"opt_state": optimizer.state_dict(), "epoch", "scheduler"}``. Reading the
-JAX package's msgpack/orbax checkpoints waits for ROADMAP queue 1 item 7;
-a directory holding only those raises ``NotImplementedError``.
+Two file formats:
+  - ``checkpoint-{epoch}.pt`` (``torch.save``, the port's default) holds the
+    JAX state's keys with the port's values: ``{"params": model
+    state_dict (reference key names), "opt_state": the optimizer's
+    state_dict, "epoch", "scheduler"}``, plus ``"ema_params"`` where the
+    run kept an EMA;
+  - ``checkpoint-{epoch}.msgpack`` is the JAX package's flax msgpack,
+    read and written by ``train/flax_msgpack.py`` (no flax, no msgpack):
+    its trees are in the JAX layout (``compat/weights.py`` translates).
+    ``restore_checkpoint`` returns such a file's tree as it stands; the
+    ``Trainer`` and the synthesizer translate it.
+Where both formats hold one epoch, the ``.pt`` wins. Orbax directories
+(``checkpoint-{epoch}.orbax``) need orbax, which the card's machine lacks:
+a directory holding only those raises ``NotImplementedError`` naming
+ROADMAP queue 1 item 7a.
 """
 from __future__ import annotations
 
@@ -22,11 +29,14 @@ import glob
 import json
 import os
 import re
-from typing import Any
+from typing import Any, Iterable
 
 import torch
 
-JAX_FORMATS_ITEM = "ROADMAP queue 1 item 7 (reading the JAX package's msgpack/orbax checkpoints)"
+from . import flax_msgpack
+
+ORBAX_ITEM = "ROADMAP queue 1 item 7a (orbax checkpoints)"
+FORMATS = {"torch": "pt", "msgpack": "msgpack"}
 
 
 class ExperimentState:
@@ -56,26 +66,39 @@ class ExperimentState:
         return obj
 
 
-def checkpoint_path(exp_dir: str, epoch: int) -> str:
-    return os.path.join(exp_dir, f"checkpoint-{epoch}.pt")
+def checkpoint_path(exp_dir: str, epoch: int, fmt: str = "torch") -> str:
+    return os.path.join(exp_dir, f"checkpoint-{epoch}.{FORMATS[fmt]}")
 
 
-def save_checkpoint(exp_dir: str, epoch: int, state: dict) -> str:
-    """Write ``state`` as checkpoint-{epoch}.pt (via a temporary file, so a
-    crash mid-write never leaves a truncated checkpoint under its name)."""
-    path = checkpoint_path(exp_dir, epoch)
+def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -> str:
+    """Write ``state`` as checkpoint-{epoch}.pt (``fmt="torch"``) or as
+    flax msgpack, checkpoint-{epoch}.msgpack (``fmt="msgpack"``; ``state``
+    in the JAX layout, e.g. ``Trainer.jax_state_dict``), via a temporary
+    file, so a crash mid-write never leaves a truncated checkpoint under
+    its name."""
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown checkpoint format {fmt!r}; 'torch' or 'msgpack' "
+                         f"('orbax' waits for {ORBAX_ITEM})")
+    path = checkpoint_path(exp_dir, epoch, fmt)
+    if fmt == "msgpack":
+        return flax_msgpack.dump(state, path)
     tmp = f"{path}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
     return path
 
 
-def restore_checkpoint(path: str, device="cpu") -> dict[str, Any]:
-    """The dict a ``save_checkpoint`` wrote, its tensors on ``device``."""
-    if not path.endswith(".pt"):
-        raise NotImplementedError(f"{path}: the port reads its own .pt checkpoints; "
-                                  f"other formats wait for {JAX_FORMATS_ITEM}")
-    return torch.load(path, map_location=device, weights_only=True)
+def restore_checkpoint(path: str, device="cpu", keys: Iterable[str] | None = None
+                       ) -> dict[str, Any]:
+    """The dict a checkpoint holds: a ``.pt`` with its tensors on
+    ``device``; a ``.msgpack`` as its flax tree of CPU tensors (only the
+    top-level ``keys`` where given, the rest skipped unread)."""
+    if path.endswith(".msgpack"):
+        return flax_msgpack.load(path, keys)
+    if path.endswith(".orbax"):
+        raise NotImplementedError(f"{path}: reading orbax checkpoints waits for {ORBAX_ITEM}")
+    state = torch.load(path, map_location=device, weights_only=True)
+    return state if keys is None else {k: state[k] for k in keys if k in state}
 
 
 def _epochs(exp_dir: str, ext: str) -> dict[int, str]:
@@ -87,34 +110,32 @@ def _epochs(exp_dir: str, ext: str) -> dict[int, str]:
     return out
 
 
-def _refuse_jax_formats(exp_dir: str) -> None:
-    found = sorted(p for ext in ("msgpack", "orbax") for p in _epochs(exp_dir, ext).values())
-    if found:
-        raise NotImplementedError(
-            f"{exp_dir} holds only JAX-package checkpoints ({os.path.basename(found[-1])}, ...); "
-            f"the port reads .pt and reference .tar files, and these wait for {JAX_FORMATS_ITEM}")
-
-
 def latest_checkpoint(exp_dir: str) -> tuple[str, int] | None:
-    """(path, epoch) of the newest .pt checkpoint in exp_dir, or None.
-    Raises NotImplementedError where only msgpack/orbax checkpoints exist."""
-    pts = _epochs(exp_dir, "pt")
-    if pts:
-        epoch = max(pts)
-        return pts[epoch], epoch
-    _refuse_jax_formats(exp_dir)
+    """(path, epoch) of the newest .pt or .msgpack checkpoint in exp_dir
+    (the .pt where both hold that epoch), or None. Raises
+    NotImplementedError where only orbax checkpoints exist."""
+    found = {**_epochs(exp_dir, "msgpack"), **_epochs(exp_dir, "pt")}
+    if found:
+        epoch = max(found)
+        return found[epoch], epoch
+    orbax = _epochs(exp_dir, "orbax")
+    if orbax:
+        raise NotImplementedError(
+            f"{exp_dir} holds only orbax checkpoints ({os.path.basename(orbax[max(orbax)])}, "
+            f"...); reading them waits for {ORBAX_ITEM}")
     return None
 
 
 def best_checkpoint(exp_dir: str) -> tuple[str, int]:
     """The checkpoint inference should load, via hyperparams.json's
-    best_epoch: ``checkpoint-{best}.pt``, else the reference's own
-    ``checkpoint-{best}.tar`` (train.py:202-204), else the newest .pt
-    (a best-epoch file lost in a crash; with a warning). Where only
-    msgpack/orbax checkpoints exist it raises NotImplementedError."""
+    best_epoch: ``checkpoint-{best}.pt``, else ``.msgpack``, else the
+    reference's own ``checkpoint-{best}.tar`` (train.py:202-204), else the
+    newest .pt or .msgpack (a best-epoch file lost in a crash; with a
+    warning). Where only orbax checkpoints exist it raises
+    NotImplementedError."""
     with open(os.path.join(exp_dir, "hyperparams.json")) as f:
         best = json.load(f)["best_epoch"]  # all inference reads (inference.py:120-122)
-    for path in (checkpoint_path(exp_dir, best),
+    for path in (checkpoint_path(exp_dir, best), checkpoint_path(exp_dir, best, "msgpack"),
                  os.path.join(exp_dir, f"checkpoint-{best}.tar")):
         if os.path.exists(path):
             return path, best

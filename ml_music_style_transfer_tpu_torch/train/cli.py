@@ -5,15 +5,20 @@ flags, plus ``--device`` (default ``cuda``; with no card it fails).
         -data-dir PATH_BASENAME -exp-name NAME [-epochs N] [-test-freq N] \
         [--batch-size N] [--n-train-read N] [--n-test-read N] [--resume] \
         [--width-mult F] [--spectral-loss W] [--stream-bf16] [--device-resident] \
-        [--device D]
+        [--adam-mu-dtype bfloat16] [--adam-nu-dtype bfloat16] [--grads-dtype bfloat16] \
+        [--grad-clip-norm X] [--warmup-steps N] [--ema-decay D] [--grad-accum K] \
+        [--ckpt-format torch|msgpack] [--device D]
 
 Reading the HDF5 dataset needs ``h5py``. ``--device-resident`` keeps the
 train split on the card (a file preprocessed with ``--store-audio``) and
-assembles each batch there. The flags of options the port does not run yet
-(a mesh > 1, --store-sharding data, --ckpt-format msgpack/orbax, the
-Adam/grad dtypes, clipping, warmup, EMA, grad-accum, ZeRO and --debug-nans)
-are accepted and refused with ``NotImplementedError`` naming the ROADMAP
-item that brings them. Reference CLI: model/train.py:211-220.
+assembles each batch there. The optimizer options are the JAX package's
+(``train/optim.py``); ``--ckpt-format msgpack`` writes the JAX package's
+``checkpoint-{epoch}.msgpack``, which its ``restore_checkpoint`` reads.
+The flags of what the port does not run yet are accepted and refused with
+``NotImplementedError`` naming the ROADMAP item that brings them: a mesh > 1,
+--store-sharding data and --zero-opt (item 9, multi-device),
+--ckpt-format orbax (item 7a) and --debug-nans (item 10). Reference CLI:
+model/train.py:211-220.
 """
 from __future__ import annotations
 
@@ -68,7 +73,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--zero-opt", action="store_true")
     p.add_argument("--ckpt-format", choices=("torch", "msgpack", "orbax"), default="torch",
                    help="'torch': checkpoint-{epoch}.pt via torch.save (the port's "
-                        "format); the JAX package's formats are not written yet")
+                        "format); 'msgpack': the JAX package's flax msgpack; 'orbax' "
+                        "is not written yet")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
     return p

@@ -19,20 +19,29 @@ Reference model/train.py:125-208, on one card:
     there (``train_step_resident``, ``eval_step_resident``,
     ``train_epoch_resident``, ``evaluate_resident``,
     ``fit(device_resident=True)``); only index vectors cross per step;
+  - the optimizer options of ``TrainConfig`` (moment and gradient dtypes,
+    clipping, warmup, parameter EMA, gradient accumulation) through
+    ``train/optim.py``, on host-fed and resident steps alike; with none set
+    the optimizer is ``torch.optim.Adam`` (fused on the card);
   - ReduceLROnPlateau on the test loss, best-on-test-loss checkpoints
-    (``checkpoint-{epoch}.pt``), the reference's hyperparams.json contract,
-    a ``metrics.jsonl`` stream and resume from the newest checkpoint.
+    (``checkpoint-{epoch}.pt``, or the JAX package's flax msgpack with
+    ``checkpoint_format="msgpack"``), the reference's hyperparams.json
+    contract, a ``metrics.jsonl`` stream and resume from the newest
+    checkpoint of either format. With ``ema_decay`` set, ``fit`` evaluates
+    the EMA weights, ranks epochs by them and checkpoints them as
+    ``ema_params`` beside ``params``.
 
 Unlike the JAX Trainer, which threads (params, opt_state) through pure
 jitted steps, this one holds the model and optimizer and updates them in
 place. ``init_state`` (or ``fit``) builds both; the other methods use them.
-The JAX checkpoint formats, a store on a mesh and the optimizer options
-of ``TrainConfig`` that ``unsupported_train_options`` lists raise
+Orbax checkpoints, a store on a mesh and the options that
+``unsupported_train_options`` lists (ZeRO, a mesh) raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import time
@@ -41,6 +50,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..compat import weights
 from ..config import ModelConfig, TrainConfig, unsupported_train_options
 from ..data.dataset import ChunkDataset, process_data
 from ..data.device_store import DeviceDataStore, check_placement, gather_batch
@@ -48,7 +58,7 @@ from ..device import resolve_device
 from ..models import PerformanceNet
 from ..utils.logging import MetricsLogger
 from . import checkpoint as ckpt
-from . import losses
+from . import losses, optim
 from .schedule import ReduceLROnPlateau
 
 
@@ -103,30 +113,76 @@ class Trainer:
         self.exp_root = exp_root
         self.exp_dir = os.path.join(exp_root, train_cfg.exp_name)
         self.model: PerformanceNet | None = None
-        self.optimizer: torch.optim.Adam | None = None
+        self.optimizer: torch.optim.Adam | optim.TrainOptimizer | None = None
         # one 64-bit dropout seed per train step, drawn on the host
         self.dropout_gen = torch.Generator().manual_seed(train_cfg.seed)
 
     # ---- state --------------------------------------------------------
     def init_state(self, seed: int = 0):
         """Build the model (xavier-normal from a generator seeded ``seed``)
-        and its Adam optimizer on the device. Other weights load in place
-        afterwards (``model.load_state_dict``); the optimizer keeps them."""
+        and its optimizer on the device (``optim.build_optimizer``: fused
+        Adam, or the chain of the config's options). Other weights load in
+        place afterwards (``model.load_state_dict``); the optimizer keeps
+        them, and an EMA starts from the weights it was built on."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.model = PerformanceNet(self.model_cfg, device=self.device, generator=gen)
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.scheduler.lr, betas=(0.9, 0.999), eps=1e-8,
-            fused=True if self.device.type == "cuda" else None)
+        self.optimizer = optim.build_optimizer(list(self.model.named_parameters()), self.cfg,
+                                               self.scheduler.lr, self.device)
         return self.model, self.optimizer
+
+    def _names(self) -> list[str]:
+        return [n for n, _ in self.model.named_parameters()]
+
+    def ema_state_dict(self) -> dict[str, torch.Tensor]:
+        """The EMA of the weights under the model's state_dict keys (raises
+        ``ValueError`` without ``ema_decay``)."""
+        return dict(zip(self._names(), optim.get_param_ema(self.optimizer)))
+
+    @contextlib.contextmanager
+    def ema_weights(self):
+        """The model holds the EMA weights inside the block (no copy: the
+        parameters' data are swapped and swapped back)."""
+        params = list(self.model.parameters())
+        saved = [p.data for p in params]
+        for p, e in zip(params, optim.get_param_ema(self.optimizer)):
+            p.data = e
+        try:
+            yield self.model
+        finally:
+            for p, s in zip(params, saved):
+                p.data = s
 
     def state_dict(self, epoch: int) -> dict:
         """The checkpoint state, under the JAX package's keys."""
-        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
-                "epoch": epoch, "scheduler": self.scheduler.state_dict()}
+        state = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+                 "epoch": epoch, "scheduler": self.scheduler.state_dict()}
+        if self.cfg.ema_decay is not None:
+            state["ema_params"] = self.ema_state_dict()
+        return state
+
+    def jax_state_dict(self, epoch: int) -> dict:
+        """The checkpoint state in the JAX layout (flax param trees, the
+        optax state of the JAX ``Trainer`` with this config): what
+        ``save_checkpoint(..., fmt="msgpack")`` writes and the JAX
+        package's ``restore_checkpoint`` reads."""
+        state = {"params": weights.to_jax_params(self.model.state_dict()),
+                 "opt_state": weights.to_jax_opt_state(
+                     optim.export_state(self.optimizer, self._names()), self.cfg),
+                 "epoch": epoch, "scheduler": self.scheduler.state_dict()}
+        if self.cfg.ema_decay is not None:
+            state["ema_params"] = weights.to_jax_params(self.ema_state_dict())
+        return state
 
     def load_state(self, state: dict) -> None:
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        """Load a ``state_dict`` (from a .pt) or a JAX-layout state (from a
+        msgpack the JAX package or ``jax_state_dict`` wrote)."""
+        if "params" in state["params"]:  # a flax tree: {"params": {...}}
+            self.model.load_state_dict(weights.from_jax_params(state["params"]))
+            optim.import_state(self.optimizer, weights.from_jax_opt_state(state["opt_state"]),
+                               self._names())
+        else:
+            self.model.load_state_dict(state["params"])
+            self.optimizer.load_state_dict(state["opt_state"])
         self.scheduler.load_state_dict(state["scheduler"])
 
     def set_lr(self, lr: float) -> None:
@@ -148,8 +204,9 @@ class Trainer:
         return loss
 
     def train_step(self, batch: dict, dropout_seed: int) -> torch.Tensor:
-        """One Adam step on ``batch`` (device tensors); returns the loss as
-        a device scalar."""
+        """One optimizer call on ``batch`` (device tensors): an update, or
+        with ``grad_accum = k`` one of k microbatches, whose k-th applies
+        the mean. Returns the loss as a device scalar."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(batch, dropout_seed)
         loss.backward()
@@ -287,12 +344,17 @@ class Trainer:
         differ from the host path's; ``torch.float32`` for parity). A test
         split without ``audio_*`` keys is evaluated from host batches, with
         a notice. ``store_sharding="data"`` raises (one card).
+
+        ``checkpoint_format``: "torch" (``checkpoint-{epoch}.pt``) or
+        "msgpack" (the JAX package's format, ``jax_state_dict``); "orbax"
+        raises. With ``ema_decay`` set the EMA weights are evaluated,
+        ranked and written as ``ema_params``.
         """
         check_placement(None, store_sharding)
-        if checkpoint_format != "torch":
-            raise NotImplementedError(
-                f"checkpoint_format={checkpoint_format!r}: the port writes its own .pt "
-                f"checkpoints ('torch'); the JAX formats wait for {ckpt.JAX_FORMATS_ITEM}")
+        if checkpoint_format == "orbax":
+            raise NotImplementedError(f"checkpoint_format='orbax' waits for {ckpt.ORBAX_ITEM}")
+        if checkpoint_format not in ckpt.FORMATS:
+            raise ValueError(f"unknown checkpoint_format {checkpoint_format!r}")
         os.makedirs(self.exp_root, exist_ok=True)
         if not resume:
             os.makedirs(self.exp_dir)  # same error-on-exists semantics (train.py:183)
@@ -361,16 +423,23 @@ class Trainer:
                         epoch_sec=dt, device_resident=store is not None,
                         frames_per_sec=n_batches * self.cfg.batch_size * 860 / max(dt, 1e-9))
             if epoch % self.cfg.test_freq == 0:
-                if test_store is not None:
-                    test_loss = self.evaluate_resident(test_store, exp=exp)
-                else:
-                    test_loss = self.evaluate(test_ds, exp=exp)
+                # with an EMA, serving loads the EMA weights (--use-ema), so
+                # best-epoch selection ranks them (JAX loop.py:508-516)
+                ema = (self.ema_weights() if self.cfg.ema_decay is not None
+                       else contextlib.nullcontext())
+                with ema:
+                    if test_store is not None:
+                        test_loss = self.evaluate_resident(test_store, exp=exp)
+                    else:
+                        test_loss = self.evaluate(test_ds, exp=exp)
                 exp.test_loss_history.append(test_loss)
                 self.set_lr(self.scheduler.step(test_loss))
                 metrics.log("eval", epoch=epoch, test_loss=test_loss, lr=self.scheduler.lr)
                 if test_loss < exp.best_loss:
                     print("saving model")
-                    ckpt.save_checkpoint(self.exp_dir, epoch + 1, self.state_dict(epoch + 1))
+                    state = (self.jax_state_dict(epoch + 1) if checkpoint_format == "msgpack"
+                             else self.state_dict(epoch + 1))
+                    ckpt.save_checkpoint(self.exp_dir, epoch + 1, state, checkpoint_format)
                     exp.best_loss = test_loss
                     exp.best_epoch = epoch + 1
                     exp.save(self.exp_dir)

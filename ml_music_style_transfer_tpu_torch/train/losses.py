@@ -1,9 +1,11 @@
 """Loss functions with a per-item weight mask (the JAX package's
-``train/losses.py:20-109``).
+``train/losses.py``).
 
 Reference contract: L1 train loss (model/train.py:132), MSE eval loss
 (train.py:158), and the optional DDSP-style multi-scale spectral loss over
-mel projections of the predicted and target log-power spectrograms.
+mel projections of the predicted and target log-power spectrograms; for
+models whose output is already mel (the autoencoder family), the same
+distance over band-pooled mel frames.
 
 Every loss takes a per-item ``weight`` (B,) mask so padded eval batches
 stay exact: reductions are means over the weighted items, torch's 'mean'
@@ -83,3 +85,25 @@ def multiscale_spectral_loss(
                 per_scale = torch.mean(torch.abs(mp - mt), dim=(1, 2)) + per_scale
         total = total + _weighted_mean(per_scale, weight)
     return total / len(mel_scales)
+
+
+def mel_multiscale_spectral_loss(pred: torch.Tensor, target: torch.Tensor,
+                                 weight: torch.Tensor, band_scales: tuple = (1, 2, 4),
+                                 log_alpha: float = 1.0) -> torch.Tensor:
+    """Multi-resolution spectral distance on (B, T, n_mels) log1p(mel power)
+    frames (JAX ``losses.py:112-143``): for each k in ``band_scales`` the
+    bands are mean-pooled k at a time to n_mels / k, and L1(linear power) +
+    log_alpha * L1(log power) is accumulated; the mean over the scales.
+    Raises ``ValueError`` where a scale does not divide n_mels."""
+    pow_p, pow_t = torch.expm1(pred), torch.expm1(target)
+    n_mels = pred.shape[-1]
+    total = 0.0
+    for k in band_scales:
+        if n_mels % k:
+            raise ValueError(f"n_mels={n_mels} not divisible by band scale {k}")
+        pp = pow_p.reshape(*pow_p.shape[:-1], n_mels // k, k).mean(-1)
+        pt = pow_t.reshape(*pow_t.shape[:-1], n_mels // k, k).mean(-1)
+        lin = torch.mean(torch.abs(pp - pt), dim=(1, 2))
+        log = torch.mean(torch.abs(torch.log1p(pp) - torch.log1p(pt)), dim=(1, 2))
+        total = total + _weighted_mean(lin + log_alpha * log, weight)
+    return total / len(band_scales)

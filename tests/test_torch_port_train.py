@@ -231,10 +231,7 @@ class TestTrainer:
             torch.testing.assert_close(grads[True][1][k], g, rtol=1e-6, atol=1e-9 + 1e-6 * float(g.abs().max()))
         assert saved[True] < saved[False]
 
-    @pytest.mark.parametrize("option", [
-        dict(adam_mu_dtype="bfloat16"), dict(adam_nu_dtype="bfloat16"),
-        dict(grads_dtype="bfloat16"), dict(grad_clip_norm=1.0), dict(warmup_steps=10),
-        dict(ema_decay=0.999), dict(grad_accum=2), dict(zero_opt=True), dict(mesh_shape=(2, 1))])
+    @pytest.mark.parametrize("option", [dict(zero_opt=True), dict(mesh_shape=(2, 1))])
     def test_options_not_ported_raise_naming_the_roadmap(self, option):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
             Trainer(ModelConfig(**TINY_KW), TrainConfig(**option), device="cpu")
@@ -316,14 +313,22 @@ class TestCheckpoint:
         assert ckpt.best_checkpoint(d)[0].endswith("checkpoint-2.pt")
 
     def test_jax_formats_only_raise(self, tmp_path):
+        """A JAX msgpack resolves and reads (item 7); a directory holding
+        only orbax checkpoints still raises, naming item 7a."""
         d = str(tmp_path)
-        jckpt.save_checkpoint(d, 3, {"epoch": 3})
+        path = jckpt.save_checkpoint(d, 3, {"epoch": 3})
         exp = jckpt.ExperimentState(5, 1, "x")
         exp.best_epoch = 3
         exp.save(d)
+        assert ckpt.latest_checkpoint(d) == (path, 3) == ckpt.best_checkpoint(d)
+        assert ckpt.restore_checkpoint(path) == {"epoch": 3}
+        o = str(tmp_path / "orbax")
+        os.makedirs(os.path.join(o, "checkpoint-2.orbax"))
+        exp.best_epoch = 2
+        exp.save(o)
         for fn in (ckpt.latest_checkpoint, ckpt.best_checkpoint):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-                fn(d)
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7a"):
+                fn(o)
         assert ckpt.latest_checkpoint(str(tmp_path / "empty")) is None
 
 
@@ -375,8 +380,8 @@ class TestFit:
     def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path):
         """The device-resident path (item 6) has landed: ``fit`` and the
         four resident methods run on a file without audio as far as that
-        allows (the store names --store-audio); items 7, 9 and 10 still
-        raise."""
+        allows (the store names --store-audio); orbax (item 7a), the mesh
+        and ZeRO (item 9) and --debug-nans (item 10) still raise."""
         tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2), exp_root=str(tmp_path),
                      device="cpu")
         with pytest.raises(ValueError, match="store-audio"):
@@ -397,11 +402,13 @@ class TestFit:
         assert np.isfinite(tr.evaluate_resident(store))
         with pytest.raises(NotImplementedError, match="item 9"):
             tr.fit(tiny_h5, store_sharding="data")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tr.fit(tiny_h5, checkpoint_format="msgpack")
-        for flags in (["--debug-nans"], ["--mesh-data", "2"], ["--grad-accum", "2"]):
-            with pytest.raises(NotImplementedError):
-                train_cli.main(["-data-dir", tiny_h5, "--device", "cpu"] + flags)
+        with pytest.raises(NotImplementedError, match="item 7a"):
+            tr.fit(tiny_h5, checkpoint_format="orbax")
+        for flags, item in ((["--debug-nans"], "item 10"), (["--mesh-data", "2"], "item 9"),
+                            (["--zero-opt"], "item 9"), (["--ckpt-format", "orbax"], "item 7a")):
+            with pytest.raises(NotImplementedError, match=item):
+                train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "r"]
+                               + flags)
 
     def test_cli_trains_with_stream_bf16(self, tiny_h5, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)
