@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and data paths, its
-optimizer options and checkpoints, the autoencoder family and its fused
-conv-block kernel on one NVIDIA GPU and check them.
+optimizer options and checkpoints, the autoencoder family, its deployment
+programs, support code and daemon soak, and its fused conv-block kernel on
+one NVIDIA GPU and check them. Each phase prints its seconds.
 
     python3 chip_smoke.py
 
@@ -56,7 +57,7 @@ scipy and the standard library. Phases, each reported on its own lines:
      it at batch 16 in bfloat16, and one in float32, ``dropout_mask`` and
      ``dropout_apply`` must be bit-equal to their plain versions; keep
      fraction, seed/call-index determinism, the extreme rates' clamped
-     thresholds and the backward of ``DropoutFunction``; the kernel's time
+     thresholds and the backward of ``dropout`` (the operator); the kernel's time
      at (16, 384, 860) beside its plain version's, ``F.dropout``'s and its
      bound;
   11. training path: ``Trainer`` at full width and batch 16 on seeded
@@ -111,6 +112,30 @@ scipy and the standard library. Phases, each reported on its own lines:
      by slope (12 steps minus 2, over 10), losses finite and falling over
      the timed steps, no launch of any hand-written kernel, and a profile
      of 3 steps;
+  17. deployment programs (``compat/program_export.py``, after phase 16, on
+     the phase-4 weights): the forward (T 860, batch 1), Griffin-Lim (860
+     frames, 300 iterations) and serving (8 tiles, 30 s of timbre audio)
+     programs exported on the card from the meta model (seconds, file
+     sizes; no parameters in any), saved, loaded and run: the forward
+     within 1e-4 of each element plus 1e-4 of the peak of the live
+     model's, Griffin-Lim and serving within 1e-4 of the peak of
+     ``gl_steps`` and ``synthesize_waveform`` from the same initial phase,
+     each program run launching each glue kernel 300 times (its glue is
+     the ``mmst_torch`` operators); the Griffin-Lim program once more in a
+     fresh process;
+  18. support code: ``device_trace`` of a warm request names both glue
+     kernels and its ``trace_annotation`` span; ``StepTimer`` within 5 %
+     of CUDA events on the full-width train step (batch 16); two steps
+     under ``nan_debugging`` (no false positive, 10 + 10 dropout launches
+     seen by the mode as ``mmst_torch::dropout_apply``, the slowdown); a
+     NaN in a batch's conditioning raises ``FloatingPointError`` naming the
+     operator; the phase-4 weights written as a reference ``.tar`` (2.93
+     GB, GB/s), read back bit-equal and served (``compat_mbr_noop=True``)
+     equal to the same weights from memory;
+  19. daemon soak: ``scripts/soak_daemon.run_soak`` at 40 requests with its
+     asserts (isolation of the malformed requests, no cache warning, finite
+     non-silent WAVs, 300 launches of each glue kernel per Griffin-Lim run,
+     the novel-length probe); per-class p50/p99, requests/s, peak memory;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -126,10 +151,11 @@ scipy and the standard library. Phases, each reported on its own lines:
 Lines starting ``metric`` carry the serving system's numbers under the
 names ``scripts/bench_inference.py`` prints, and the train step's under
 ``scripts/bench_train.py``'s. The glue kernels' ``launches`` in the
-kernels' JSON record sum their counts over phases 4, 6-9 and 15 (three
-requests), the dropout kernel's over phases 11 (12 steps), 13 (the
-resident epoch and the evaluation), 14 (12 steps) and 15 (4 microbatch
-calls and 24 timed steps). The
+kernels' JSON record sum their counts over phases 4, 6-9, 15 (three
+requests), 17 (the programs and the live runs they are held to), 18 and
+19 (the soak), the dropout kernel's over phases 11 (12 steps), 13 (the
+resident epoch and the evaluation), 14 (12 steps), 15 (4 microbatch
+calls and 24 timed steps) and 18 (8 steps, 2 of them NaN-debugged). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -805,10 +831,10 @@ def dropout_phase(torch, dk):
 
     x = torch.randn(TIMED_SHAPE, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_()
     g = torch.randn(TIMED_SHAPE, device="cuda", generator=gen).to(torch.bfloat16)
-    dk.DropoutFunction.apply(x, seed, 3, rate).backward(g)
+    dk.dropout(x, seed, 3, rate).backward(g)
     want = g * dk.dropout_mask_reference(seed, 3, TIMED_SHAPE, rate, torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    check(torch.equal(x.grad, want), "DropoutFunction's gradient != grad * mask")
+    check(torch.equal(x.grad, want), "dropout's gradient != grad * mask")
     print("dropout backward: grad == grad_out * mask, bit-equal")
 
     # timing at the largest shape; six inputs in turn (63 MB) so that L2
@@ -1361,6 +1387,355 @@ def autoencoder_phase(torch, dk, glue, fc, binf):
                            dtype="bfloat16"))
 
 
+# ---- phase 17: deployment programs (torch.export) ------------------------------
+
+FORWARD_TOL = 1e-4  # relative, plus as much of the peak; see export_phase
+GL_PROGRAM_TOL = 1e-4  # of the peak
+SERVING_MIDI_SECONDS = 21.0  # 8 tiles and l_out = 3870 frames, the program's shapes
+
+
+def _fresh_process_program(torch, path: str, inputs_path: str, out_path: str) -> dict:
+    """Load the program at ``path`` in a new Python process (the package
+    imported first, as a loaded program names its ``mmst_torch`` operators),
+    run it on the inputs saved at ``inputs_path`` and save its output;
+    returns the glue launches that process counted."""
+    code = "\n".join([
+        "import json, sys, torch",
+        "import ml_music_style_transfer_tpu_torch",
+        "from ml_music_style_transfer_tpu_torch.compat.program_export import load_artifact",
+        "from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue",
+        "args = torch.load(sys.argv[2])",
+        "with torch.inference_mode():",
+        "    y = load_artifact(sys.argv[1]).module()(*args)",
+        "torch.save(y.cpu(), sys.argv[3])",
+        "print(json.dumps(gl_glue.LAUNCHES))"])
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code, path, inputs_path, out_path],
+                         capture_output=True, text=True, timeout=600, env=env)
+    check(out.returncode == 0, f"fresh-process program run failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
+    """Phase 17: the forward (T 860, batch 1), Griffin-Lim (860 frames, 300
+    iterations) and serving (8 tiles, 30 s of timbre audio) programs
+    exported on the card from the meta model, saved, loaded and run with
+    the phase-4 weights. The forward against the live model, element by
+    element within ``FORWARD_TOL`` of it plus ``FORWARD_TOL`` of the peak
+    (the CPU tests' tolerance for the forward program): the program replays
+    the same ATen operators at the same shapes, and with cuDNN's autotuner
+    off the card picks the same algorithms, so every card run so far was
+    bit-equal. Griffin-Lim and serving against ``gl_steps`` and
+    ``AudioSynthesizer`` from the same initial phase (``GL_PROGRAM_TOL`` of
+    the peak), each program run launching each glue kernel 300 times; the
+    Griffin-Lim program once more in a fresh process. Returns the glue
+    launches per kernel."""
+    from ml_music_style_transfer_tpu_torch.compat import program_export as pe
+    from ml_music_style_transfer_tpu_torch.data.audio_io import read_wav, write_wav
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.midi import Note
+    from ml_music_style_transfer_tpu_torch.midi import writer as midi_writer
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+
+    cuda = torch.device("cuda")
+    out_dir = os.path.join(tmp, "programs")
+    paths = pe.write_artifacts(out_dir, cfg, device=cuda)
+    with open(paths["manifest"]) as f:
+        seconds = json.load(f)["export_seconds"]
+    programs = {}
+    for name in ("forward", "griffinlim", "serving"):
+        t = time.perf_counter()
+        ep = pe.load_artifact(paths[name])
+        load_s = time.perf_counter() - t
+        n_const = sum(v.numel() for v in ep.constants.values())
+        n_ops = sum(n.op == "call_function" for n in ep.graph.nodes)
+        print(f"export: {name}.pt2 {os.path.getsize(paths[name])} bytes, exported in "
+              f"{seconds[name]:.2f} s, loaded in {load_s:.2f} s, {n_ops} operator nodes, "
+              f"{len(ep.constants)} constants of {n_const} elements, "
+              f"{len(ep.state_dict)} parameters or buffers")
+        check(not ep.state_dict and not ep.graph_signature.parameters,
+              f"export: the {name} program holds parameters")
+        programs[name] = ep.module()
+    gl_nodes = sum(n.target == torch.ops.mmst_torch.gl_ola_nola.default
+                   for n in pe.load_artifact(paths["griffinlim"]).graph.nodes)
+    check(gl_nodes == N_ITER, f"export: {gl_nodes} gl_ola_nola nodes in the Griffin-Lim program")
+    params = pe.program_params(state, cfg)
+    n = 0
+
+    # forward against the live model on seeded inputs
+    rng = np.random.default_rng(17)
+    midi = torch.from_numpy((rng.random((1, 860, 128)) < 0.05).astype(np.float32)).cuda()
+    cond = torch.from_numpy(rng.random((1, 860, 1025), dtype=np.float32) * 8.0).cuda()
+    onoff = torch.from_numpy(rng.integers(-1, 2, (1, 860, 128)).astype(np.float32)).cuda()
+    model = synth_mod.build_model(cfg, state, cuda)
+    with torch.inference_mode():
+        got = programs["forward"](params, midi, cond, onoff)
+        want = model(midi, cond, onoff)
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    print(f"export: forward program vs live model (1, 860) bf16: max_abs_err={err:.3e} on a peak "
+          f"of {peak:.3f} ({err / peak:.3e} of it; tolerance {FORWARD_TOL} of each element and "
+          f"of the peak), bit-equal={torch.equal(got, want)}")
+    check(got.shape == want.shape and bool(
+        ((got - want).abs() <= FORWARD_TOL * (want.abs() + peak)).all()),
+          "export: the forward program disagrees with the live model")
+    del model
+
+    # Griffin-Lim against gl_steps from the same phase, in this process and a fresh one
+    spec = want[0].transpose(0, 1).contiguous()
+    phase = pe.init_phase(spec.shape, 5).cuda()
+    with torch.inference_mode():
+        glue.reset_launches()
+        t = time.perf_counter()
+        y_prog = programs["griffinlim"](spec, phase)
+        torch.cuda.synchronize()
+        prog_s = time.perf_counter() - t
+        n += counted(glue, N_ITER, "griffinlim program")
+        glue.reset_launches()
+        y_live = tgl.griffinlim(tstft.inverse_log_power(spec), init_phase=phase, n_iter=N_ITER,
+                                device=cuda)
+        n += counted(glue, N_ITER, "griffinlim live")
+    err = float((y_prog - y_live).abs().max() / y_live.abs().max())
+    print(f"export: griffinlim program (860 frames, 300 iters, {prog_s:.3f} s) vs gl_steps: "
+          f"max_abs_err/peak={err:.3e} (tolerance {GL_PROGRAM_TOL}), bit-equal="
+          f"{torch.equal(y_prog, y_live)}")
+    check(y_prog.shape == y_live.shape and err <= GL_PROGRAM_TOL,
+          "export: the Griffin-Lim program disagrees with gl_steps")
+    inputs_path, out_path = os.path.join(tmp, "gl_inputs.pt"), os.path.join(tmp, "gl_out.pt")
+    torch.save((spec, phase), inputs_path)
+    t = time.perf_counter()
+    fresh = _fresh_process_program(torch, paths["griffinlim"], inputs_path, out_path)
+    y_fresh = torch.load(out_path)
+    err = float((y_fresh - y_prog.cpu()).abs().max() / y_live.abs().max())
+    print(f"export: griffinlim program loaded in a fresh process ({time.perf_counter() - t:.1f} s "
+          f"with its start-up): launches {fresh}, max_abs_err/peak vs this process {err:.3e}")
+    check(all(v == N_ITER for v in fresh.values()) and err <= GL_PROGRAM_TOL,
+          "export: the Griffin-Lim program run in a fresh process disagrees")
+
+    # serving against AudioSynthesizer: the same request, the same phase
+    notes = make_song(np.random.default_rng(17), SERVING_MIDI_SECONDS, Note)
+    midi_p, wav_p = os.path.join(tmp, "export.mid"), os.path.join(tmp, "export.wav")
+    midi_writer.save(midi_p, notes)
+    write_wav(wav_p, render(notes, 30.0))
+    synth = synth_mod.AudioSynthesizer(tmp, midi_p, wav_p, model_cfg=cfg, params=state, device=cuda)
+    glue.reset_launches()
+    y_live = synth.synthesize_waveform(n_iter=N_ITER)
+    n += counted(glue, N_ITER, "serving live")
+    roll, onoff_r, starts, t_total = synth._chunk_midi(midi_p, True)
+    audio, _ = read_wav(wav_p, sr=44100)
+    n_tiles, l_out = 8, pe.serving_frames(8)
+    pad = n_tiles - roll.shape[0]
+    check(0 <= pad < 4 and -(-t_total // GL_BUCKET) * GL_BUCKET == l_out,
+          f"export: the {SERVING_MIDI_SECONDS} s request does not fill the program's shapes")
+    cst = synth._cond_starts(starts, 1 + len(audio) // 256, "aligned", 860)
+
+    def tiles(a):
+        return torch.from_numpy(np.pad(a, ((0, pad), (0, 0), (0, 0)))).cuda()
+
+    args = (params, torch.from_numpy(audio.astype(np.float32)).cuda(), tiles(roll), tiles(onoff_r),
+            torch.tensor(list(starts) + [0] * pad, device=cuda),
+            torch.tensor(cst + [0] * pad, device=cuda),
+            torch.tensor([1.0] * roll.shape[0] + [0.0] * pad, device=cuda),
+            torch.tensor(t_total, device=cuda), pe.init_phase((1025, l_out), 0).cuda())
+    glue.reset_launches()
+    with torch.inference_mode():
+        t = time.perf_counter()
+        y_prog = programs["serving"](*args)
+        torch.cuda.synchronize()
+        prog_s = time.perf_counter() - t
+    n += counted(glue, N_ITER, "serving program")
+    y_prog = y_prog[: t_total * 256].cpu().numpy()
+    err = float(np.abs(y_prog - y_live).max() / np.abs(y_live).max())
+    print(f"export: serving program ({roll.shape[0]} tiles + {pad} padded, 30 s audio, "
+          f"{l_out} frames, {prog_s:.3f} s) vs AudioSynthesizer.synthesize_waveform: "
+          f"max_abs_err/peak={err:.3e} (tolerance {GL_PROGRAM_TOL}), bit-equal="
+          f"{np.array_equal(y_prog, y_live)}")
+    check(err <= GL_PROGRAM_TOL, "export: the serving program disagrees with the serving path")
+    del programs, args, params
+    return n
+
+
+# ---- phase 18: support code -----------------------------------------------------
+
+STEP_TIMER_TOL = 0.05
+
+
+def support_phase(torch, dk, glue, binf, state, cfg, tmp):
+    """Phase 18: ``device_trace`` of a warm request names both glue kernels
+    and its ``trace_annotation`` span; ``StepTimer`` against CUDA events on
+    the full-width train step (batch 16, within 5 %); the step under
+    ``nan_debugging`` (no false positive, 10 + 10 dropout launches seen by
+    the mode as ``mmst_torch::dropout_apply``, its slowdown) and a NaN in a
+    batch's conditioning raising ``FloatingPointError``; the phase-4 weights
+    written as a reference ``.tar``, read back bit-equal and served equal to
+    the same weights from memory with ``compat_mbr_noop=True``. Returns
+    (dropout launches, glue launches per kernel)."""
+    import dataclasses
+
+    from ml_music_style_transfer_tpu_torch.compat.weights import (load_reference_checkpoint,
+                                                                 save_reference_checkpoint)
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, device_prefetch
+    from ml_music_style_transfer_tpu_torch.utils import profiling
+
+    cuda = torch.device("cuda")
+    gl = 0
+    midi, wav = binf.make_clip(tmp, "trace", 10.0, 72)
+    synth = synth_mod.AudioSynthesizer(tmp, midi, wav, model_cfg=cfg, params=state, device=cuda)
+    glue.reset_launches()
+    synth.synthesize_waveform(n_iter=N_ITER)
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.device_trace(trace_dir):
+        with profiling.trace_annotation("mmst.request"):
+            synth.synthesize_waveform(n_iter=N_ITER)
+    gl += counted(glue, 2 * N_ITER, "traced request (a warm-up, then the traced one)")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in x for x in kernels) for k in ("gl_ola_nola_kernel", "gl_frame_window_kernel")}
+    found["mmst.request"] = sum(e.get("name") == "mmst.request" for e in events)
+    print(f"support: device_trace of a warm 10 s request: {len(events)} events, "
+          f"{os.path.getsize(os.path.join(trace_dir, 'trace.json'))} bytes, {len(kernels)} kernel "
+          f"events; events named {found}")
+    if not all(found.values()):
+        cats = {}
+        for e in events:
+            cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        print(f"support: trace categories {cats}; kernel names {sorted(set(kernels))[:12]}")
+    check(all(found[k] >= N_ITER for k in ("gl_ola_nola_kernel", "gl_frame_window_kernel"))
+          and found["mmst.request"] >= 1, "support: the trace lacks the glue kernels or the span")
+    del synth
+
+    tr = Trainer(ModelConfig(), TrainConfig(batch_size=16, seed=0), device="cuda")
+    tr.init_state(0)
+    ds = ChunkDataset.from_arrays(host_arrays(16, seed=18), seed=0)
+    batch = next(device_prefetch(ds.epoch_batches(16), cuda))
+    timer = profiling.StepTimer(device=cuda)
+    ev_ms = []
+    dk.reset_launches()
+    for _ in range(6):
+        with timer:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            tr.train_step(batch, tr.next_dropout_seed())
+            b.record()
+        ev_ms.append(a.elapsed_time(b))
+    got = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
+    check(got == (60, 60), f"support: dropout launches {got} after 6 steps")
+    t_timer = timer.mean_step_time()
+    t_events = statistics.mean(ev_ms[1:]) / 1e3
+    print(f"support: StepTimer mean step {t_timer:.5f} s ({timer.frames_per_sec(16):.0f} frames/s) "
+          f"vs CUDA events {t_events:.5f} s over 5 warm steps: "
+          f"{100 * (t_timer / t_events - 1):+.2f} % (tolerance {100 * STEP_TIMER_TOL:.0f} %)")
+    check(abs(t_timer / t_events - 1) <= STEP_TIMER_TOL, "support: StepTimer disagrees with events")
+    plain_s = statistics.median(timer.times[1:])
+    launches = 6 * 20
+
+    debug_s = []
+    for i in range(2):
+        dk.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profiling.nan_debugging() as mode:
+            loss = float(tr.train_step(batch, tr.next_dropout_seed()))
+        torch.cuda.synchronize()
+        debug_s.append(time.perf_counter() - t)
+        seen = mode.seen["mmst_torch.dropout_apply.default"]
+        got = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
+        check(np.isfinite(loss) and got == (10, 10) and seen == 20,
+              f"support: nan-debug step {i}: loss {loss}, dropout launches {got}, "
+              f"operator calls seen by the mode {seen}")
+        launches += 20
+    print(f"support: train step under nan_debugging (batch 16, full width, bf16): no NaN, loss "
+          f"{loss:.6f}, {sum(mode.seen.values())} operator outputs checked, dropout launches "
+          f"10 + 10 seen by the mode as mmst_torch::dropout_apply; {[round(x, 3) for x in debug_s]}"
+          f" s against {plain_s:.4f} s without the mode ({debug_s[1] / plain_s:.1f}x)")
+    bad = dict(batch)
+    bad["cond"] = batch["cond"].clone()
+    bad["cond"][3, 100, 7] = float("nan")
+    try:
+        with profiling.nan_debugging():
+            tr.train_step(bad, tr.next_dropout_seed())
+        fail("support: a NaN in the conditioning did not raise under nan_debugging")
+    except FloatingPointError as e:
+        print(f"support: NaN injected into batch item 3's conditioning: FloatingPointError: {e}")
+        check("aten." in str(e), "support: the NaN error names no operator")
+    del tr, batch, bad, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    path = os.path.join(tmp, "checkpoint-0.tar")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_reference_checkpoint(path, state, epoch=0)
+    write_s = time.perf_counter() - t
+    size = os.path.getsize(path)
+    t = time.perf_counter()
+    back = load_reference_checkpoint(path)
+    read_s = time.perf_counter() - t
+    check(sorted(back) == sorted(state) and all(torch.equal(back[k], state[k].cpu()) for k in back),
+          "support: the .tar read back differs from the weights written")
+    print(f"support: reference .tar of the phase-4 weights {size} bytes ({size / 1e9:.3f} GB): "
+          f"written in {write_s:.3f} s ({size / 1e9 / write_s:.3f} GB/s), read in {read_s:.3f} s "
+          f"({size / 1e9 / read_s:.3f} GB/s), bit-equal")
+    del back
+    synth_mod.clear_caches()
+    noop = dataclasses.replace(cfg, compat_mbr_noop=True)
+    waves = {}
+    for what, kw in (("tar", dict(model_cfg=cfg, checkpoint_path=path)),
+                     ("memory", dict(model_cfg=noop, params={
+                         k: v for k, v in state.items() if not k.startswith("MBRBlock")}))):
+        glue.reset_launches()
+        waves[what] = synth_mod.AudioSynthesizer(tmp, midi, wav, device=cuda,
+                                                 **kw).synthesize_waveform(n_iter=N_ITER)
+        gl += counted(glue, N_ITER, f"served from {what}")
+    os.remove(path)
+    synth_mod.clear_caches()
+    check(np.array_equal(waves["tar"], waves["memory"]),
+          "support: the .tar serves another waveform than the same weights from memory")
+    print("support: the .tar served (compat_mbr_noop=True) a waveform equal to the same weights "
+          "served from memory")
+    return launches, gl
+
+
+# ---- phase 19: daemon soak --------------------------------------------------------
+
+SOAK_REQUESTS = 40
+
+
+def soak_phase(torch, glue, state, cfg, tmp) -> int:
+    """Phase 19: ``scripts/soak_daemon.run_soak`` at 40 requests on the
+    phase-4 weights (its asserts: isolation, no cache warning, finite
+    non-silent WAVs, 300 launches of each glue kernel per Griffin-Lim run,
+    the novel-length probe). Returns the glue launches per kernel."""
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.scripts import soak_daemon
+
+    cuda = torch.device("cuda")
+    root = os.path.join(tmp, "soak")
+    os.makedirs(root)
+
+    def make_synth(midi, wav):
+        return synth_mod.AudioSynthesizer(root, midi, wav, model_cfg=cfg, params=state,
+                                          device=cuda)
+
+    glue.reset_launches()
+    r = soak_daemon.run_soak(make_synth, root, SOAK_REQUESTS, N_ITER, 2, cuda)
+    check(r["glue_launches"] == dict(glue.LAUNCHES), "soak: glue launches miscounted")
+    lat = " ".join(f"{k}(n={v['n']}) p50={v['p50']:.4f} p99={v['p99']:.4f}"
+                   for k, v in r["latency_s"].items())
+    print(f"soak: {r['requests']} requests in {r['wall_s']:.2f} s, {r['requests_per_s']:.3f} "
+          f"requests/s, ok {r['ok']}/{r['expected_ok']}, {r['bad_requests']} malformed isolated, "
+          f"cache warnings {r['cache_warnings']}, {r['wavs_checked']} WAVs checked, peak "
+          f"{r['peak_memory_GB']:.3f} GB; latency s {lat}")
+    print(f"soak: novel-length probe {r['novel_probe']}; {r['griffinlim_runs']} Griffin-Lim runs, "
+          f"glue launches {r['glue_launches']}")
+    return r["glue_launches"]["gl_ola_nola"]
+
+
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
 
 FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
@@ -1485,6 +1860,14 @@ def fused_conv_phase(torch, fc):
     return launches, max(err_bf16, err_f32), timed
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, then a line with the phase's seconds."""
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1514,11 +1897,11 @@ def main() -> None:
             if "registers" in line or "spill" in line or "warning" in line.lower():
                 print(f"ptxas {name}: {line.strip()}")
 
-    errs, timing = kernel_phase(torch, glue, tstft)
+    errs, timing = timed("3 (glue kernels vs plain)", kernel_phase, torch, glue, tstft)
     fc.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, warm, state = main_path(torch, glue, dk, binf, tmp)
-        profile_phase(torch, warm)
+        launches, warm, state = timed("4 (serving path)", main_path, torch, glue, dk, binf, tmp)
+        timed("5 (profile)", profile_phase, torch, warm)
         cfg = warm.model_cfg
 
         def make_synth(midi, wav):  # the serving cache's model for `state`
@@ -1526,23 +1909,24 @@ def main() -> None:
                                               device="cuda")
 
         gl_launches = sum(launches.values()) // 2
-        gl_launches += whole_clip_phase(torch, glue, tstft, binf, make_synth, tmp, errs)
-        gl_launches += batch_phase(torch, glue, binf, make_synth, tmp)
-        gl_launches += daemon_phase(torch, glue, binf, make_synth, tmp)
-        gl_launches += dft_phase(torch, glue, tstft, binf, warm, tmp)
+        gl_launches += timed("6 (whole clip)", whole_clip_phase, torch, glue, tstft, binf,
+                             make_synth, tmp, errs)
+        gl_launches += timed("7 (batch)", batch_phase, torch, glue, binf, make_synth, tmp)
+        gl_launches += timed("8 (daemon)", daemon_phase, torch, glue, binf, make_synth, tmp)
+        gl_launches += timed("9 (dft)", dft_phase, torch, glue, tstft, binf, warm, tmp)
         print(f"launches of each glue kernel over the serving paths (tiled, whole clip, batch, "
               f"daemon, dft): {gl_launches}")
-    del warm, state, make_synth  # the serving model's 2.9 GB go back before training
+    del warm, make_synth  # phases 17-19 serve the phase-4 weights (`state`) again
     synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()
     check(not any(fc.LAUNCHES.values()), "serving launched the fused conv kernel")
-    dropout_err, dropout_t = dropout_phase(torch, dk)
-    dropout_launches, tr, fed_step = train_phase(torch, dk, glue)
+    dropout_err, dropout_t = timed("10 (dropout kernel vs plain)", dropout_phase, torch, dk)
+    dropout_launches, tr, fed_step = timed("11 (training)", train_phase, torch, dk, glue)
     glue.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
-        data_launches, resident, fed = data_phase(torch, dk, tr, tmp)
-    scale_launches, scale = scale_phase(torch, dk, tr)
+        data_launches, resident, fed = timed("13 (data path)", data_phase, torch, dk, tr, tmp)
+    scale_launches, scale = timed("14 (store at scale)", scale_phase, torch, dk, tr)
     check(not any(glue.LAUNCHES.values()), "the data path launched the Griffin-Lim glue")
     dropout_launches += data_launches + scale_launches
     print(f"train step at batch 16, full width, bf16: phase 11 on a staged batch "
@@ -1572,18 +1956,35 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        opt_dropout, opt_gl = options_phase(torch, dk, glue, binf, tmp)
+        opt_dropout, opt_gl = timed("15 (optimizer options)", options_phase, torch, dk, glue,
+                                    binf, tmp)
     dropout_launches += opt_dropout
     gl_launches += opt_gl
     check(not any(fc.LAUNCHES.values()), "the options phase launched the fused conv kernel")
     gc.collect()
     torch.cuda.empty_cache()
-    autoencoder_phase(torch, dk, glue, fc, binf)
+    timed("16 (autoencoder)", autoencoder_phase, torch, dk, glue, fc, binf)
     print("fused conv kernel launches on the serving, training, data, options and autoencoder "
           "paths: 0 (the model keeps cuDNN's conv, as the JAX model keeps XLA's)")
+    for phase in ("17 (export)", "18 (support code)", "19 (soak)"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            if phase.startswith("17"):
+                gl_launches += timed(phase, export_phase, torch, glue, tstft, binf, state, cfg, tmp)
+            elif phase.startswith("18"):
+                nan_dropout, support_gl = timed(phase, support_phase, torch, dk, glue, binf, state,
+                                                cfg, tmp)
+                dropout_launches += nan_dropout
+                gl_launches += support_gl
+            else:
+                gl_launches += timed(phase, soak_phase, torch, glue, state, cfg, tmp)
+    check(not any(fc.LAUNCHES.values()), "phases 17-19 launched the fused conv kernel")
+    del state
+    synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()
-    conv_launches, conv_err, conv_t = fused_conv_phase(torch, fc)
+    conv_launches, conv_err, conv_t = timed("12 (fused conv)", fused_conv_phase, torch, fc)
 
     kernels = []
     for name, src_line in (("gl_ola_nola", "ml_music_style_transfer_tpu/ops/pallas/gl_glue.py:95"),

@@ -7,6 +7,11 @@ mirror the JAX package so each counterpart is easy to find.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card they raise instead of falling back.
+
+Importing the package registers the kernels' ``mmst_torch`` operators
+(``ops/kernels/gl_glue.py``, ``dropout.py``), which an exported ``.pt2``
+program names.
 """
+from .ops import kernels as _kernels  # noqa: F401
 
 __version__ = "0.1.0"

@@ -9,7 +9,10 @@ the port's own copy of the JAX package's ``compat/torch_export.py:32-63``:
   - ConvTranspose kernel (k, in, out) <-> ConvTranspose1d weight (in, out, k)
   - Dense kernel (in, out)            <-> Linear weight (out, in)
 Each map runs both ways (``from_jax_params``, ``to_jax_params``);
-``AUTOENCODER`` is the map of the autoencoder family.
+``AUTOENCODER`` is the map of the autoencoder family. Reference ``.tar``
+files are read (``load_reference_checkpoint``) and written
+(``save_reference_checkpoint``, the counterpart of the JAX package's
+``compat/torch_export.py:84-117``).
 
 ``from_jax_opt_state`` reads the optax state tree that the JAX ``Trainer``
 checkpoints (``inject_hyperparams(adam)``, alone or in a ``chain`` with
@@ -228,3 +231,32 @@ def load_reference_checkpoint(path: str, compat_mbr_noop: bool = False
     state = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
     return {k: v.float() for k, v in state.items()
             if not (compat_mbr_noop and k.startswith("MBRBlock"))}
+
+
+def to_state_dict(params: Mapping[str, Any], rules=PERFORMANCE_NET) -> Dict[str, torch.Tensor]:
+    """A port state_dict (flat, reference keys) or a flax param tree (nested,
+    with or without the ``'params'`` wrapper; numpy arrays or tensors) ->
+    the reference's state_dict: contiguous float32 CPU tensors in the torch
+    layout. A key or module path that no rule maps raises KeyError, so a
+    partly translated checkpoint can never be written."""
+    if any(isinstance(v, Mapping) for v in params.values()):
+        return {k: v.cpu() for k, v in from_jax_params(params, rules).items()}
+    state = {}
+    for key, v in params.items():
+        base = key.rsplit(".", 1)[0]
+        if key.rsplit(".", 1)[-1] not in ("weight", "bias") or not any(
+                re.match(r[2], base) for r in rules):
+            raise KeyError(f"unmapped port param for export: {key}")
+        state[key] = _tensor(v).detach().to("cpu", torch.float32).contiguous()
+    return state
+
+
+def save_reference_checkpoint(path: str, params: Mapping[str, Any], epoch: int = 0) -> str:
+    """Write a reference-format ``checkpoint-{epoch}.tar``,
+    ``{"epoch", "state_dict", "optimizer": None}``, that the unmodified
+    reference model/inference.py loads (its strict ``load_state_dict``
+    takes full-width weights only). ``params``: as ``to_state_dict``.
+    ``optimizer`` is None, as the JAX package writes it: the reference
+    reads it only to resume training."""
+    torch.save({"epoch": epoch, "state_dict": to_state_dict(params), "optimizer": None}, path)
+    return path

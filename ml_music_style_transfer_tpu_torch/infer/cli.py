@@ -7,7 +7,9 @@ plus ``--device`` (default ``cuda``; with no card it fails).
 The experiment dir is ./experiments/{exp_name}; without ``--checkpoint`` the
 checkpoint of the best_epoch named by its hyperparams.json is loaded: the
 port's ``checkpoint-{best_epoch}.pt``, the JAX package's ``.msgpack`` or the
-reference's ``.tar`` (reference model/inference.py:112-124).
+reference's ``.tar`` (reference model/inference.py:112-124). On the card
+every CUDA kernel is built first (``utils/profiling
+.enable_persistent_compile_cache``; ``MMST_COMPILE_CACHE=0`` skips it).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import argparse
 import os
 
 from ..config import ModelConfig
+from ..utils.profiling import enable_persistent_compile_cache
 from .synthesize import AudioSynthesizer
 
 
@@ -41,6 +44,7 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
     args = p.parse_args(argv)
+    enable_persistent_compile_cache(args.device)  # every kernel built before the request
 
     exp_dir = os.path.join(os.path.abspath("./experiments"), args.exp_name)
     synth = AudioSynthesizer(

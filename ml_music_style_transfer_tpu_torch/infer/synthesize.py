@@ -4,11 +4,13 @@ Counterpart of the JAX package's ``infer/synthesize.py`` (reference
 model/inference.py:22-110), serving path only:
   1. MIDI -> binarised piano roll + onset/offset roll, tiled into 860-frame
      chunks with 50 % overlap (tile count bucketed to a multiple of 4);
-  2. timbre WAV -> log-power STFT on the device (host reflect pad, then a
-     half-chunk sample bucket, as the JAX path does);
+  2. timbre WAV -> log-power STFT on the device (reflect pad, then a
+     half-chunk sample bucket, as the JAX path does: ``cond_spec``);
   3. per-tile conditioning gather (cyclic when the audio is shorter);
   4. PerformanceNet forward over all tiles in one batch;
-  5. triangular crossfade blend of the overlapping tile predictions;
+  5. triangular crossfade blend of the overlapping tile predictions
+     (``forward_blend``; steps 2-5 are the functions that the exported
+     serving program, ``compat/program_export.py``, traces too);
   6. sqrt(expm1(clip)) and 300 iterations of momentum Griffin-Lim, whose
      consistency glue is the hand-written CUDA kernel on the card.
 
@@ -204,28 +206,68 @@ def load_checkpoint_params(path: str, use_ema: bool = False, device="cpu"
     return state[key]
 
 
-def _cond_tiles(spec: torch.Tensor, starts_cond: torch.Tensor, n_valid: int,
-                win: int) -> torch.Tensor:
+def cond_spec(audio: torch.Tensor, hp: DSPConfig = DEFAULT_DSP) -> tuple[torch.Tensor, int]:
+    """Timbre waveform (samples,) on its device -> (log-power spec
+    (bucketed frames, bins), TRUE frame count).
+
+    The waveform is reflect-padded by half a window (the STFT's centre
+    semantics), then zero-padded/trimmed to a half-chunk frame bucket's
+    sample count. Frames [0, true count) equal the unbucketed centred
+    STFT; callers gather modulo the true count, so padded frames are
+    never used.
+    """
+    half = hp.n_fft // 2
+    n_valid = 1 + audio.shape[0] // hp.ws  # centred-STFT frame contract
+    bucket = hp.windows_per_chunk // 2
+    n_bucketed = -(-n_valid // bucket) * bucket
+    target = (n_bucketed - 1) * hp.ws + hp.n_fft
+    a = tstft.reflect_pad(audio, half)
+    a = F.pad(a, (0, target - a.shape[0])) if a.shape[0] < target else a[:target]
+    spec = tstft.log_power_stft(a, hp.n_fft, hp.ws, center=False)
+    return spec.transpose(0, 1), n_valid
+
+
+def cond_tiles(spec: torch.Tensor, starts_cond: torch.Tensor, n_valid: int,
+               win: int) -> torch.Tensor:
     """Per-tile conditioning gather: tile i gets frames
     (starts_cond[i] + j) % n_valid of the (n_frames, bins) spec."""
     j = torch.arange(win, device=spec.device)
     return spec[(starts_cond[:, None] + j[None, :]) % n_valid]
 
 
-def _blend(pred: torch.Tensor, starts, valid, t_total: int, l_out: int) -> torch.Tensor:
+def _blend(pred: torch.Tensor, starts: torch.Tensor, valid: torch.Tensor, t_total,
+           l_out: int) -> torch.Tensor:
     """Triangular crossfade of overlapping tile predictions (weights
-    min(j+1, win-j), normalised); frames past the MIDI's length are zero."""
-    win, nb = pred.shape[1], pred.shape[2]
-    j = torch.arange(win, dtype=torch.float32, device=pred.device)
+    min(j+1, win-j), normalised); frames from ``t_total`` on are zero.
+
+    ``starts`` (int64) and ``valid`` (float32) hold one entry per tile on
+    ``pred``'s device, and ``t_total`` is an int or a 0-d tensor, so an
+    exported program takes them as inputs. Tile i's weighted products are
+    added at rows starts[i] + j, in tile order; a tile's rows are distinct,
+    so each frame sums the same products in the same order wherever the
+    tiles start."""
+    n, win, nb = pred.shape
+    dev = pred.device
+    j = torch.arange(win, dtype=torch.float32, device=dev)
     wgt = torch.minimum(j + 1.0, win - j)[:, None]
-    num = torch.zeros((l_out, nb), dtype=torch.float32, device=pred.device)
-    den = torch.zeros((l_out, 1), dtype=torch.float32, device=pred.device)
-    for p, s, v in zip(pred, starts, valid):
-        num[s : s + win] += p * wgt * v
-        den[s : s + win] += wgt * v
+    rows = torch.arange(win, device=dev)
+    num = torch.zeros((l_out, nb), dtype=torch.float32, device=dev)
+    den = torch.zeros((l_out, 1), dtype=torch.float32, device=dev)
+    for i in range(n):
+        num.index_add_(0, starts[i] + rows, pred[i] * wgt * valid[i])
+        den.index_add_(0, starts[i] + rows, wgt * valid[i])
     out = num / torch.clamp(den, min=1e-9)
-    out[t_total:] = 0.0
-    return out
+    return torch.where(torch.arange(l_out, device=dev)[:, None] < t_total, out, 0.0)
+
+
+def forward_blend(forward: Callable, roll: torch.Tensor, onoff: torch.Tensor,
+                  cond: torch.Tensor, starts: torch.Tensor, valid: torch.Tensor, t_total,
+                  l_out: int) -> torch.Tensor:
+    """``forward(roll, cond, onoff)`` over all tiles in one batch (int8
+    rolls in, as they are uploaded), then ``_blend``: (l_out, bins)
+    float32."""
+    pred = forward(roll.float(), cond, onoff.float())
+    return _blend(pred.float(), starts, valid, t_total, l_out)
 
 
 class AudioSynthesizer:
@@ -319,15 +361,9 @@ class AudioSynthesizer:
         return roll_chunks, onoff_chunks, starts, t_total
 
     def _cond_spec_device(self, audio_path: str) -> tuple[torch.Tensor, int]:
-        """Timbre audio -> (device log-power spec (bucketed frames, bins),
-        TRUE frame count).
-
-        The waveform is reflect-padded on the host (the STFT's centre
-        semantics), then zero-padded/trimmed to a half-chunk frame bucket's
-        sample count. Frames [0, true count) equal the unbucketed centred
-        STFT; callers gather modulo the true count, so padded frames are
-        never used.
-        """
+        """Timbre audio file -> (device log-power spec (bucketed frames,
+        bins), TRUE frame count): the waveform is uploaded and ``cond_spec``
+        runs on the device."""
         hp = self.hp
         audio, _ = audio_io.read_wav(audio_path, sr=hp.sr)
         if len(audio) < hp.n_fft:
@@ -335,15 +371,7 @@ class AudioSynthesizer:
                 f"{audio_path} is shorter than one FFT window "
                 f"({len(audio)} < {hp.n_fft} samples at {hp.sr} Hz) "
                 "— too short to extract timbre from")
-        half = hp.n_fft // 2
-        a = np.pad(audio.astype(np.float32), (half, half), mode="reflect")
-        n_valid = 1 + len(audio) // hp.ws  # centred-STFT frame contract
-        bucket = hp.windows_per_chunk // 2
-        n_bucketed = -(-n_valid // bucket) * bucket
-        target = (n_bucketed - 1) * hp.ws + hp.n_fft
-        a = np.pad(a, (0, target - len(a))) if len(a) < target else a[:target]
-        spec = tstft.log_power_stft(_stage(a, self.device), hp.n_fft, hp.ws, center=False)
-        return spec.transpose(0, 1), n_valid
+        return cond_spec(_stage(audio.astype(np.float32), self.device), hp)
 
     def _cond_starts(self, starts, n_valid: int, cond_mode: str, win: int):
         """Cond tile offsets; the gather wraps them mod n_valid."""
@@ -373,8 +401,8 @@ class AudioSynthesizer:
         cstarts = self._cond_starts(starts, n_valid, cond_mode, win)
         if cond_mode == "center":
             cstarts = cstarts[:1]
-        cond = _fetch(_cond_tiles(spec_dev, _stage(np.asarray(cstarts, np.int64), self.device),
-                                  n_valid, win))
+        cond = _fetch(cond_tiles(spec_dev, _stage(np.asarray(cstarts, np.int64), self.device),
+                                 n_valid, win))
         if cond_mode == "center":
             cond = cond[0]
         return (roll_chunks.astype(np.float32), onoff_chunks.astype(np.float32),
@@ -383,8 +411,7 @@ class AudioSynthesizer:
     # ---- synthesis ------------------------------------------------------
     @torch.inference_mode()
     def _forward_blend(self, roll, onoff, cond, starts, valid, t_total: int, l_out: int):
-        pred = self.model(roll.float(), cond, onoff.float())
-        return _blend(pred.float(), starts, valid, t_total, l_out)
+        return forward_blend(self.model, roll, onoff, cond, starts, valid, t_total, l_out)
 
     def _predict_device(self, midi_path: str, audio_path: str,
                         overlap: bool = True, cond_mode: str = "aligned"):
@@ -411,10 +438,11 @@ class AudioSynthesizer:
         l_out = max(starts) + win
         l_out = -(-l_out // (win // 2)) * (win // 2)  # output frame budget
         dev = self.device
-        cond = _cond_tiles(spec_dev, _stage(np.asarray(cond_starts + [0] * pad_n, np.int64), dev),
-                           n_valid, win)
+        idx = _stage(np.asarray([starts, cond_starts + [0] * pad_n], np.int64), dev)
+        cond = cond_tiles(spec_dev, idx[1], n_valid, win)
         spec = self._forward_blend(_stage(padn(roll_chunks), dev), _stage(padn(onoff_chunks), dev),
-                                   cond, starts, valid, t_total, l_out)
+                                   cond, idx[0], _stage(np.asarray(valid, np.float32), dev),
+                                   t_total, l_out)
         return spec, t_total
 
     def predict_spectrogram(self, roll_chunks, onoff_chunks, cond, t_total) -> np.ndarray:
@@ -439,7 +467,8 @@ class AudioSynthesizer:
         l_out = max(starts) + win
         l_out = -(-l_out // (win // 2)) * (win // 2)
         spec = self._forward_blend(padn(roll_chunks, np.int8), padn(onoff_chunks, np.int8),
-                                   cond_b, starts, valid, t_total, l_out)
+                                   cond_b, _stage(np.asarray(starts, np.int64), dev),
+                                   _stage(np.asarray(valid, np.float32), dev), t_total, l_out)
         return _fetch(spec[:t_total])
 
     @torch.inference_mode()

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.dropout import DropoutFunction
+from ..ops.kernels import dropout as _dropout
 
 
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -47,8 +47,8 @@ def fast_dropout(x: torch.Tensor, seed: int, call_index: int, rate: float) -> to
     """Dropout through the Philox kernel: ``x * mask`` with the mask of
     (seed, call_index), gradient ``grad * mask`` (the JAX package's
     ``layers.fast_dropout``, layers.py:49-67, with a seed and call index in
-    place of a JAX key)."""
-    return DropoutFunction.apply(x.contiguous(), seed, call_index, rate)
+    place of a JAX key), through the ``mmst_torch::dropout_apply`` operator."""
+    return _dropout.dropout(x.contiguous(), seed, call_index, rate)
 
 
 def crop_and_concat(upsampled: torch.Tensor, bypass: torch.Tensor) -> torch.Tensor:

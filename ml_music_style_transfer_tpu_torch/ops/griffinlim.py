@@ -10,7 +10,9 @@ so the random phase differs from the JAX package's by design; pass
 With ``use_pallas_glue=True`` (the default) each iteration is
 irfft -> consistency glue -> rfft, the glue being the hand-written CUDA
 kernels of ``ops/kernels/gl_glue.py`` on a CUDA tensor and their plain
-version on a CPU tensor. With ``False`` the iteration is istft -> stft.
+version on a CPU tensor; traced by ``torch.export``, the glue is their
+``mmst_torch`` operators, so an exported program launches the same
+kernels. With ``False`` the iteration is istft -> stft.
 
 ``transform="dft"`` swaps the two FFTs for two matmuls on a packed real
 [Re|Im] state (the JAX package's ``_gl_steps_dft``), with the same glue

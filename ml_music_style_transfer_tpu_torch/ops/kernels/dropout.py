@@ -17,8 +17,9 @@ Entry points, on contiguous float32 or bfloat16 tensors:
   - ``dropout_mask``: the mask itself, what the TPU kernel computes;
   - ``dropout_apply``: ``x * mask`` in one pass, the mask never stored;
   - ``dropout_grad``: the same kernel on the incoming gradient, for the
-    backward of ``DropoutFunction`` (it regenerates the mask from the seed
-    instead of saving it).
+    backward (it regenerates the mask from the seed instead of saving it);
+  - ``dropout``: ``x * mask`` with that backward, through the operator
+    ``mmst_torch::dropout_apply`` (the model's dropout).
 On a CUDA tensor each launches the kernel or raises; on a CPU tensor it
 runs the plain version (which also takes float64, for ``gradcheck``).
 ``LAUNCHES`` counts kernel launches per entry point and nothing else.
@@ -207,15 +208,40 @@ def dropout_grad(grad: torch.Tensor, seed: int, call_index: int, rate: float) ->
     return _apply(grad, seed, call_index, rate, "dropout_grad")
 
 
-class DropoutFunction(torch.autograd.Function):
-    """``x * mask`` with a gradient of ``grad * mask``. Saves only
-    (seed, call_index, rate), never the mask."""
+# ---- the kernel as a PyTorch operator ----------------------------------------
+# ``mmst_torch::dropout_apply``, so that a ``torch.export`` trace and a
+# ``TorchDispatchMode`` see the launches (see gl_glue.py). The schema's
+# ``int`` is signed 64-bit: the unsigned seed crosses as its two's
+# complement. The gradient is the operator itself on the incoming gradient
+# with ``backward=True``; only (seed, call_index, rate) are saved, never
+# the mask.
 
-    @staticmethod
-    def forward(ctx, x, seed: int, call_index: int, rate: float):
-        ctx.dropout_args = (seed, call_index, rate)
-        return dropout_apply(x, seed, call_index, rate)
+@torch.library.custom_op("mmst_torch::dropout_apply", mutates_args=())
+def _dropout_op(x: torch.Tensor, seed: int, call_index: int, rate: float,
+                backward: bool = False) -> torch.Tensor:
+    entry = dropout_grad if backward else dropout_apply
+    return entry(x, seed % 2**64, call_index, rate)
 
-    @staticmethod
-    def backward(ctx, grad):
-        return dropout_grad(grad.contiguous(), *ctx.dropout_args), None, None, None
+
+@_dropout_op.register_fake
+def _(x, seed, call_index, rate, backward=False):
+    return torch.empty_like(x)
+
+
+def _dropout_setup(ctx, inputs, output):
+    ctx.dropout_args = inputs[1:4]
+
+
+def _dropout_backward(ctx, grad):
+    g = torch.ops.mmst_torch.dropout_apply(grad.contiguous(), *ctx.dropout_args, True)
+    return g, None, None, None, None
+
+
+_dropout_op.register_autograd(_dropout_backward, setup_context=_dropout_setup)
+
+
+def dropout(x: torch.Tensor, seed: int, call_index: int, rate: float) -> torch.Tensor:
+    """``x * mask`` with a gradient of ``grad * mask``, through the
+    ``mmst_torch::dropout_apply`` operator; ``seed`` is unsigned 64-bit."""
+    signed = seed - 2**64 if seed >= 2**63 else seed
+    return torch.ops.mmst_torch.dropout_apply(x, signed, call_index, rate, False)

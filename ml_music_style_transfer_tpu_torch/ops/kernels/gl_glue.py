@@ -17,7 +17,9 @@ It replaces the JAX package's Pallas kernels in
 
 The kernels are in ``csrc/gl_glue.cu`` (design and bound in its header).
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs the plain PyTorch version beside it. ``LAUNCHES`` counts kernel
+it runs the plain PyTorch version beside it. The two wrappers are also
+the operators ``mmst_torch::gl_ola_nola`` and ``mmst_torch::gl_frame_window``,
+which ``gl_consistency_frames`` calls while it is traced or watched. ``LAUNCHES`` counts kernel
 launches per kernel and nothing else; the serving daemon launches from two
 threads, so the counts are bumped under a lock.
 """
@@ -156,12 +158,50 @@ def frame_window(y: torch.Tensor, window: torch.Tensor, nf: int) -> torch.Tensor
     return g
 
 
+# ---- the wrappers as PyTorch operators ---------------------------------------
+# A ctypes launch takes raw data pointers, so neither a ``torch.export``
+# trace (a FakeTensor has none) nor a ``TorchDispatchMode`` sees it. As
+# ``mmst_torch::`` operators the same launches are visible to both; each
+# implementation is the wrapper above, and a fake gives the output's shape.
+
+@torch.library.custom_op("mmst_torch::gl_ola_nola", mutates_args=())
+def _ola_nola_op(frames: torch.Tensor, window: torch.Tensor,
+                 inv_blocks: torch.Tensor) -> torch.Tensor:
+    return ola_nola(frames, window, inv_blocks)
+
+
+@_ola_nola_op.register_fake
+def _(frames, window, inv_blocks):
+    return frames.new_empty((frames.shape[0] + R - 1, frames.shape[1] // R))
+
+
+@torch.library.custom_op("mmst_torch::gl_frame_window", mutates_args=())
+def _frame_window_op(y: torch.Tensor, window: torch.Tensor, nf: int) -> torch.Tensor:
+    return frame_window(y, window, nf)
+
+
+@_frame_window_op.register_fake
+def _(y, window, nf):
+    return y.new_empty((nf, window.shape[0]))
+
+
 def gl_consistency_frames(frames: torch.Tensor, window: torch.Tensor,
                           inv_blocks: torch.Tensor) -> torch.Tensor:
     """Fused GL glue: raw irfft frames (nf, n_fft) -> windowed rfft input
     frames (nf, n_fft), f32, edge frames included.
 
+    While PyTorch traces (``torch.export``, ``torch.compile``) or a
+    ``TorchDispatchMode`` watches (NaN debugging), the two kernels are
+    called through their operators, so an exported program launches them
+    and the mode checks their outputs. Otherwise the wrappers are called
+    directly: an operator's dispatch costs host time on each of the 600
+    calls of a request, and serving is bound by the host (PERF.md §6).
+
     ``inv_blocks`` is 1/window_sumsquare reshaped to (nf + 7, hop), zeros
     where the sum is ~0. Requires n_fft == 8 * hop and nf >= 24.
     """
-    return frame_window(ola_nola(frames, window, inv_blocks), window, frames.shape[0])
+    nf = frames.shape[0]
+    if torch.compiler.is_compiling() or torch._C._len_torch_dispatch_stack():
+        y = torch.ops.mmst_torch.gl_ola_nola(frames, window, inv_blocks)
+        return torch.ops.mmst_torch.gl_frame_window(y, window, nf)
+    return frame_window(ola_nola(frames, window, inv_blocks), window, nf)

@@ -1,0 +1,66 @@
+"""Export a trained experiment as a reference-format ``.tar`` checkpoint:
+the port's counterpart of the JAX package's
+``scripts/export_torch_checkpoint.py``.
+
+    python -m ml_music_style_transfer_tpu_torch.scripts.export_torch_checkpoint \\
+        -exp-name NAME [--exp-root ./experiments] [--epoch N] [--use-ema] [--out PATH] \\
+        [--device cuda|cpu]
+
+The epoch is hyperparams.json's ``best_epoch`` (the reference's own
+contract, model/inference.py:22-29) unless ``--epoch`` names one. The
+checkpoint may be the port's ``checkpoint-{epoch}.pt`` or the JAX
+package's ``checkpoint-{epoch}.msgpack``; ``--use-ema`` exports its EMA
+weights. The output, ``{exp_dir}/checkpoint-{epoch}.tar`` by default, is
+``{"epoch", "state_dict", "optimizer": None}`` with float32 tensors under
+the reference's keys (``compat/weights.save_reference_checkpoint``). Only
+full-width (``width_mult=1.0``) weights fit the reference's strict load.
+A ``.msgpack``'s weights are translated from the JAX layout on
+``--device`` (the card by default, as at every entry point of the port;
+``--device cpu`` where there is none); the file is written from the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..compat.weights import save_reference_checkpoint
+from ..device import resolve_device
+from ..infer.synthesize import load_checkpoint_params
+from ..train import checkpoint as ckpt
+
+
+def main(argv=None) -> str:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("-exp-name", dest="exp_name", required=True)
+    ap.add_argument("--exp-root", default="./experiments")
+    ap.add_argument("--epoch", type=int, default=None,
+                    help="checkpoint epoch (default: hyperparams.json best_epoch)")
+    ap.add_argument("--use-ema", action="store_true",
+                    help="export the EMA weights (the ema_params tree)")
+    ap.add_argument("--out", default=None,
+                    help="output path (default: {exp_dir}/checkpoint-{epoch}.tar)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    exp_dir = os.path.join(os.path.abspath(args.exp_root), args.exp_name)
+    if args.epoch is None:
+        path, epoch = ckpt.best_checkpoint(exp_dir)
+    else:
+        epoch = args.epoch
+        found = [p for p in (ckpt.checkpoint_path(exp_dir, epoch),
+                             ckpt.checkpoint_path(exp_dir, epoch, "msgpack")) if os.path.exists(p)]
+        if not found:
+            raise FileNotFoundError(f"no checkpoint-{epoch}.pt or .msgpack in {exp_dir}")
+        path = found[0]
+    params = load_checkpoint_params(path, use_ema=args.use_ema, device=device)
+    out = args.out or os.path.join(exp_dir, f"checkpoint-{epoch}.tar")
+    save_reference_checkpoint(out, params, epoch=epoch)
+    print(f"wrote {out} (epoch {epoch}{', EMA weights' if args.use_ema else ''})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,9 @@ JAX package's ``scripts/quality_gate_tpu.py`` (its canonical gate).
 
     python -m ml_music_style_transfer_tpu_torch.scripts.quality_gate \\
         [--styles 2|5] [--epochs 2000] [--seed 0] [--alpha 0.25] \\
-        [--width-mult 1.0] [--batch-size 16] [--lr 1e-3] [--device cuda]
+        [--width-mult 1.0] [--batch-size 16] [--lr 1e-3] \\
+        [--spectral-loss-weight W] [--spectral-loss-mode linlog|log|direct] \\
+        [--wholeclip-divergence] [--device cuda]
 
 Renders a synthetic dataset (``testing/synthetic.make_dataset_dir``: song
 ids 11 and 12, 60 s each, RMS-normalized, dataset seed 8; styles
@@ -13,8 +15,10 @@ it with the port's pipeline keeping the raw audio (``get_arrays`` with
 ``DeviceDataStore`` and trains a PerformanceNet (full width, bfloat16
 compute, float32 Adam at ``--lr``) with resident steps: per epoch the
 chunks but the last, shuffled, in batches of ``--batch-size``, each item's
-conditioning a random training chunk of the same style. Then it checks
-the learned style transfer:
+conditioning a random training chunk of the same style. The L1 loss gains
+``--spectral-loss-weight`` times the multi-scale spectral loss of
+``--spectral-loss-mode`` where the weight is above 0 (the sweeps of the
+JAX gate). Then it checks the learned style transfer:
 
   - the L1 confusion matrix on the held-out last chunk: the prediction
     conditioned on style s (train chunk 0's audio: right timbre, wrong
@@ -29,11 +33,19 @@ the learned style transfer:
     (through the glue kernels on the card), whose magnitude must come back
     within 0.6 relative error.
 
+``--wholeclip-divergence`` also measures, on the trained weights and the
+15 s clip, how far the serving default (860-frame tiles, 50 % overlap,
+crossfade) lies from one forward over the whole clip (the reference's
+semantics): relative L2 over the clip and over its interior (one chunk
+off each end), mean absolute difference, and that over the model's own
+held-out L1 (the JAX gate's ``wholeclip_divergence`` fields). It is
+recorded, not gated.
+
 It writes ``QUALITY_GATE_H100.json`` at the repository root (other widths,
-seeds and ``--styles 5`` get suffixed names; ``--device cpu`` writes
+seeds, ``--styles 5`` and the spectral loss get the JAX gate's suffixes,
+e.g. ``QUALITY_GATE_H100_SPECLOSS0p1_LOG.json``; ``--device cpu`` writes
 ``QUALITY_GATE_CPU*.json``), never a TPU artifact, and prints it as its
-last line. The bar is pass/fail. The JAX script's spectral-loss and
-whole-clip-divergence options raise.
+last line. The bar is pass/fail.
 """
 from __future__ import annotations
 
@@ -62,7 +74,6 @@ from ..train.loop import Trainer
 from .bench_inference import smi_line
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SWEEP_ITEM = "ROADMAP queue 1 item 10 (support code: quality-gate sweeps)"
 SONG_IDS = (11, 12)
 SONG_SECONDS = 60.0
 DATASET_SEED = 8
@@ -83,6 +94,12 @@ def artifact_name(args, device: torch.device) -> str:
         name = name.replace(".json", f"_W{w}.json")
     if args.seed != 0:
         name = name.replace(".json", f"_SEED{args.seed}.json")
+    if args.spectral_loss_weight > 0:
+        w = f"{args.spectral_loss_weight:g}".replace(".", "p")
+        suffix = f"_SPECLOSS{w}"
+        if args.spectral_loss_mode != "linlog":
+            suffix += f"_{args.spectral_loss_mode.upper()}"
+        name = name.replace(".json", f"{suffix}.json")
     return name
 
 
@@ -103,11 +120,12 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="share of each pair's target separation that must show as "
                          "prediction margin (testing/quality.py)")
     ap.add_argument("--spectral-loss-weight", type=float, default=0.0,
-                    help="not run by the port's gate yet")
+                    help="weight of the multi-scale spectral loss added to the L1")
     ap.add_argument("--spectral-loss-mode", choices=("linlog", "log", "direct"),
-                    default="linlog", help="not run by the port's gate yet")
+                    default="linlog", help="spectral-loss variant")
     ap.add_argument("--wholeclip-divergence", action="store_true",
-                    help="not run by the port's gate yet")
+                    help="also measure tiled against whole-clip output on the trained "
+                         "weights")
     ap.add_argument("--out-dir", default=REPO_ROOT,
                     help="where the JSON artifact is written (default: the repository root)")
     ap.add_argument("--device", default="cuda",
@@ -163,10 +181,12 @@ def probe(tr: Trainer, store: DeviceDataStore):
     return m, tsep, preds
 
 
-def cond_proof(tr: Trainer, styles, root: str, device: torch.device) -> tuple[float, float]:
+def cond_proof(tr: Trainer, styles, root: str, device: torch.device
+               ) -> tuple[float, float, AudioSynthesizer]:
     """L1 of the aligned and the centre-crop conditioning against the
     spliced clip's own spectrogram (the MIDI is the same): a 15 s clip in
-    style B with style A's rendering in its middle 5 s."""
+    style B with style A's rendering in its middle 5 s. Also returns the
+    clip's synthesizer."""
     hp = DEFAULT_DSP
     rng = np.random.default_rng(99)
     dur = 15.0
@@ -188,7 +208,38 @@ def cond_proof(tr: Trainer, styles, root: str, device: torch.device) -> tuple[fl
             spec, t_tot = synth._predict_device(midi_path, wav_path, overlap=True, cond_mode=mode)
             t = min(t_tot, target.shape[0])
             out.append(float((spec[:t].float() - target[:t]).abs().mean()))
-    return out[0], out[1]
+    return out[0], out[1], synth
+
+
+def wholeclip_divergence(synth: AudioSynthesizer, own_l1: float) -> dict:
+    """The tiled serving prediction against one forward over the whole clip
+    (the reference's semantics) on the synthesizer's clip, as the JAX gate
+    measures it (``scripts/quality_gate_tpu.py:288-324``): relative L2 over
+    the frames both cover and over the interior (one chunk off each end,
+    where the edge padding of the two paths differs; a quarter of the clip
+    on clips under three chunks), mean absolute difference, and that over
+    ``own_l1``, the model's held-out L1 with its own style."""
+    hp = synth.hp
+    midi, wav = synth.midi_source, synth.audio_source
+    with torch.inference_mode():
+        spec_dev, t_tot = synth._predict_device(midi, wav)
+        a = spec_dev[:t_tot].float().cpu().numpy()
+    b = np.asarray(synth.predict_spectrogram_whole_clip(*synth.process_whole_clip(midi, wav)),
+                   np.float32)
+    t_cmp = min(a.shape[0], b.shape[0])
+    a, b = a[:t_cmp], b[:t_cmp]
+    w1 = hp.windows_per_chunk if t_cmp > 3 * hp.windows_per_chunk else t_cmp // 4
+    ai, bi = a[w1:t_cmp - w1], b[w1:t_cmp - w1]
+    mean_abs = float(np.mean(np.abs(a - b)))
+    return {
+        "t_frames_compared": int(t_cmp),
+        "interior_margin_frames": int(w1),
+        "rel_l2": round(float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)), 1e-9), 4),
+        "interior_rel_l2": round(float(np.linalg.norm(ai - bi))
+                                 / max(float(np.linalg.norm(bi)), 1e-9), 4),
+        "mean_abs": round(mean_abs, 4),
+        "mean_abs_vs_own_pred_err": round(mean_abs / max(own_l1, 1e-9), 3),
+    }
 
 
 def gl_floor(pred: torch.Tensor, device: torch.device) -> tuple[bool, float]:
@@ -210,11 +261,6 @@ def gl_floor(pred: torch.Tensor, device: torch.device) -> tuple[bool, float]:
 
 def main(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
-    if args.spectral_loss_weight > 0 or args.spectral_loss_mode != "linlog":
-        raise NotImplementedError(f"--spectral-loss-weight/--spectral-loss-mode wait for "
-                                  f"{SWEEP_ITEM}")
-    if args.wholeclip_divergence:
-        raise NotImplementedError(f"--wholeclip-divergence waits for {SWEEP_ITEM}")
     dev = resolve_device(args.device)
     smi = smi_line() if dev.type == "cuda" else None
     if smi:
@@ -236,7 +282,9 @@ def main(argv=None) -> dict:
 
         model_cfg = ModelConfig(width_mult=args.width_mult)
         tr = Trainer(model_cfg, TrainConfig(batch_size=args.batch_size,
-                                            learning_rate=args.lr, seed=args.seed),
+                                            learning_rate=args.lr, seed=args.seed,
+                                            spectral_loss_weight=args.spectral_loss_weight,
+                                            spectral_loss_mode=args.spectral_loss_mode),
                      device=dev)
         tr.init_state(args.seed)
         n_params = sum(p.numel() for p in tr.model.parameters())
@@ -256,8 +304,15 @@ def main(argv=None) -> dict:
                 f"best-other={np.delete(m[s], s).min():.4f} "
                 f"min-norm-margin={report['per_style_min_normalized_margin'][s]:.3f} "
                 f"(alpha={args.alpha}) disc={per_style[s]}")
-        l_aligned, l_center = cond_proof(tr, styles, root, dev)
+        l_aligned, l_center, synth = cond_proof(tr, styles, root, dev)
         log(f"cond proof: aligned L1={l_aligned:.4f} center L1={l_center:.4f}")
+        wholeclip = None
+        if args.wholeclip_divergence:
+            wholeclip = wholeclip_divergence(synth, float(m[0, 0]))
+            log(f"tiled-vs-whole-clip divergence (trained): rel_l2={wholeclip['rel_l2']} "
+                f"interior={wholeclip['interior_rel_l2']} mean_abs={wholeclip['mean_abs']} "
+                f"(= {wholeclip['mean_abs_vs_own_pred_err']}x the model's own held-out L1)")
+        del synth
         gl_gl = dict(gl_glue.LAUNCHES)
         finite, gl_rel = gl_floor(preds[1], dev)
         gl_launches = {k: gl_glue.LAUNCHES[k] - gl_gl[k] for k in gl_gl}
@@ -284,6 +339,9 @@ def main(argv=None) -> dict:
         "per_style_min_normalized_margin": report["per_style_min_normalized_margin"],
         "min_normalized_margin": report["min_normalized_margin"],
         "seed": args.seed,
+        "spectral_loss_weight": args.spectral_loss_weight,
+        "spectral_loss_mode": args.spectral_loss_mode,
+        "wholeclip_divergence": wholeclip,
         "styles_normalized": "rms",
         "cond_aligned_l1": round(l_aligned, 4),
         "cond_center_l1": round(l_center, 4),

@@ -66,6 +66,7 @@ from ..infer import bulk
 from ..infer.synthesize import MULTI_DEVICE_ITEM, AudioSynthesizer
 from ..midi import writer as midi_writer
 from ..testing import synthetic
+from ..utils.profiling import enable_persistent_compile_cache
 
 
 def _write_wav_out(wav, out_path, sr) -> None:
@@ -269,11 +270,10 @@ def main(argv=None) -> int:
     if args.mesh_data > 1:
         raise NotImplementedError(f"--mesh-data {args.mesh_data} waits for {MULTI_DEVICE_ITEM}")
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        # no request pays for nvcc: every kernel is built before stdin is read
-        from ..ops.kernels import _build
-
-        print(f"kernels built in {_build.build_all():.1f} s", file=sys.stderr)
+    # no request pays for nvcc: every kernel is built before stdin is read
+    build_dir = enable_persistent_compile_cache(device)
+    if build_dir:
+        print(f"kernels built in {build_dir}", file=sys.stderr)
 
     exp_dir = os.path.join(os.path.abspath(args.exp_root), args.exp_name)
     cfg = ModelConfig(width_mult=args.width_mult)

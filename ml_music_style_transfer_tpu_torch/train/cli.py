@@ -14,19 +14,24 @@ train split on the card (a file preprocessed with ``--store-audio``) and
 assembles each batch there. The optimizer options are the JAX package's
 (``train/optim.py``); ``--ckpt-format msgpack`` writes the JAX package's
 ``checkpoint-{epoch}.msgpack``, which its ``restore_checkpoint`` reads.
-The flags of what the port does not run yet are accepted and refused with
+``--debug-nans`` trains under ``utils/profiling.nan_debugging``: the first
+operator that outputs a NaN raises ``FloatingPointError`` naming it (the
+JAX package's ``jax_debug_nans``). Every CUDA kernel is built before the
+first step (``enable_persistent_compile_cache``). The flags of what the
+port does not run yet are accepted and refused with
 ``NotImplementedError`` naming the ROADMAP item that brings them: a mesh > 1,
---store-sharding data and --zero-opt (item 9, multi-device),
---ckpt-format orbax (item 7a) and --debug-nans (item 10). Reference CLI:
-model/train.py:211-220.
+--store-sharding data and --zero-opt (item 9, multi-device) and
+--ckpt-format orbax (item 7a). Reference CLI: model/train.py:211-220.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import torch
 
 from ..config import ModelConfig, TrainConfig
+from ..utils.profiling import enable_persistent_compile_cache, nan_debugging
 from .loop import Trainer
 
 
@@ -54,7 +59,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compat-mbr-noop", action="store_true",
                    help="reproduce the reference MBRBlock no-op/doubling behavior")
     p.add_argument("--debug-nans", action="store_true",
-                   help="fail fast on NaN (not ported yet)")
+                   help="fail fast on the first operator that outputs a NaN (slow: a "
+                        "device sync per operator)")
     p.add_argument("--stream-bf16", action="store_true",
                    help="upload host batches as bfloat16 (halves host->device bytes)")
     p.add_argument("--device-resident", action="store_true",
@@ -82,8 +88,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
-    if args.debug_nans:
-        raise NotImplementedError("--debug-nans waits for ROADMAP queue 1 item 10 (support code)")
+    enable_persistent_compile_cache(args.device)  # no step pays for nvcc
     model_cfg = ModelConfig(width_mult=args.width_mult, compat_mbr_noop=args.compat_mbr_noop)
     train_cfg = TrainConfig(
         epochs=args.epochs, test_freq=args.test_freq, exp_name=args.exp_name,
@@ -101,12 +106,14 @@ def main(argv=None) -> None:
         zero_opt=args.zero_opt,
         grad_accum=args.grad_accum,
     )
-    Trainer(
+    trainer = Trainer(
         model_cfg, train_cfg,
         stream_dtype=torch.bfloat16 if args.stream_bf16 else None,
         device=args.device,
-    ).fit(args.data_dir, resume=args.resume, device_resident=args.device_resident,
-          checkpoint_format=args.ckpt_format, store_sharding=args.store_sharding)
+    )
+    with nan_debugging() if args.debug_nans else contextlib.nullcontext():
+        trainer.fit(args.data_dir, resume=args.resume, device_resident=args.device_resident,
+                    checkpoint_format=args.ckpt_format, store_sharding=args.store_sharding)
 
 
 if __name__ == "__main__":

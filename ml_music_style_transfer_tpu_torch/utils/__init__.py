@@ -1,1 +1,2 @@
-"""Support code: structured metrics logging."""
+"""Support code: structured metrics logging (``logging``), profiling, step
+timing and NaN debugging (``profiling``)."""

@@ -125,13 +125,13 @@ class TestGradient:
     def test_gradcheck_float64(self):
         x = torch.randn(3, 5, 7, dtype=torch.float64, generator=torch.Generator().manual_seed(1),
                         requires_grad=True)
-        assert torch.autograd.gradcheck(lambda t: dk.DropoutFunction.apply(t, 21, 3, 0.4), (x,))
+        assert torch.autograd.gradcheck(lambda t: dk.dropout(t, 21, 3, 0.4), (x,))
 
     def test_gradient_is_grad_times_the_same_mask(self):
         gen = torch.Generator().manual_seed(2)
         x = torch.randn(2, 48, 30, generator=gen, requires_grad=True)
         g = torch.randn(2, 48, 30, generator=gen)
-        dk.DropoutFunction.apply(x, 77, 6, 0.2).backward(g)
+        dk.dropout(x, 77, 6, 0.2).backward(g)
         assert torch.equal(x.grad, g * dk.dropout_mask_reference(77, 6, x.shape, 0.2, x.dtype))
 
 
@@ -194,7 +194,7 @@ class TestKernelOnCard:
         x = torch.randn(2, 384, 860, generator=gen).to("cuda", torch.bfloat16).requires_grad_()
         g = torch.randn(2, 384, 860, generator=gen).to("cuda", torch.bfloat16)
         before = dk.LAUNCHES["dropout_grad"]
-        dk.DropoutFunction.apply(x, 99, 3, 0.2).backward(g)
+        dk.dropout(x, 99, 3, 0.2).backward(g)
         torch.cuda.synchronize()
         assert dk.LAUNCHES["dropout_grad"] - before == 1
         assert torch.equal(x.grad, g * dk.dropout_mask_reference(99, 3, x.shape, 0.2,

@@ -50,7 +50,10 @@ def test_scan_covers_the_package_and_the_smoke_script():
                 "scripts/quality_gate.py", "data/preprocess.py", "data/device_store.py",
                 "data/fastloader.py", "data/chunking.py", "data/musicnet.py",
                 "ops/pianoroll.py", "testing/quality.py", "train/optim.py",
-                "train/flax_msgpack.py", "models/autoencoder.py"):
+                "train/flax_msgpack.py", "models/autoencoder.py", "utils/profiling.py",
+                "compat/program_export.py", "scripts/export_program.py",
+                "scripts/export_torch_checkpoint.py", "scripts/soak_daemon.py",
+                "testing/plot_spec.py"):
         assert f"{PKG}/{new}" in rel
 
 
@@ -69,7 +72,10 @@ def test_rule_catches_the_jax_package_but_not_the_port():
     f"{PKG}.scripts.serve", f"{PKG}.scripts.bench_inference",
     f"{PKG}.scripts.bench_train", f"{PKG}.scripts.quality_gate", f"{PKG}.data.preprocess",
     f"{PKG}.data.device_store", f"{PKG}.data.fastloader", f"{PKG}.data.chunking",
-    f"{PKG}.data.musicnet", f"{PKG}.ops.pianoroll", f"{PKG}.testing.quality"])
+    f"{PKG}.data.musicnet", f"{PKG}.ops.pianoroll", f"{PKG}.testing.quality",
+    PKG, f"{PKG}.utils.profiling", f"{PKG}.compat.program_export",
+    f"{PKG}.scripts.export_program", f"{PKG}.scripts.export_torch_checkpoint",
+    f"{PKG}.scripts.soak_daemon", f"{PKG}.testing.plot_spec"])
 def test_modules_import_without_nvcc_or_a_card(module):
     """Importing builds nothing: kernels compile at their first launch."""
     importlib.import_module(module)

@@ -77,7 +77,11 @@ class TestQualityGate:
         assert result["gl_finite"] and result["gl_iters"] == 100
         assert isinstance(result["passed"], bool) and result["alpha"] == 0.25
 
-    def test_names_and_refusals(self):
+    def test_names_and_refusals(self, tmp_path, capsys):
+        """Artifact names (the JAX gate's suffixes), the refusal without a
+        card, and the sweep options: a tiny gate with the spectral loss and
+        the whole-clip divergence writes the suffixed JSON with the JAX
+        gate's ``wholeclip_divergence`` fields."""
         def name(*argv, device="cuda"):
             return quality_gate.artifact_name(quality_gate.build_argparser().parse_args(list(argv)),
                                               torch.device(device))
@@ -85,11 +89,30 @@ class TestQualityGate:
         assert name() == "QUALITY_GATE_H100.json"
         assert name("--styles", "5", "--seed", "1") == "QUALITY_GATE_H100_5STYLE_SEED1.json"
         assert name("--width-mult", "0.5", device="cpu") == "QUALITY_GATE_CPU_W0p5.json"
+        assert (name("--spectral-loss-weight", "0.1", "--spectral-loss-mode", "log")
+                == "QUALITY_GATE_H100_SPECLOSS0p1_LOG.json")
+        assert name("--spectral-loss-weight", "0.01") == "QUALITY_GATE_H100_SPECLOSS0p01.json"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             quality_gate.main(["--epochs", "1"])
-        for flags in (["--spectral-loss-weight", "0.1"], ["--wholeclip-divergence"]):
-            with pytest.raises(NotImplementedError, match="item 10"):
-                quality_gate.main(flags + ["--device", "cpu"])
+        before = _tpu_artifacts()
+        result = quality_gate.main([
+            "--device", "cpu", "--width-mult", "0.0625", "--epochs", "1", "--batch-size", "4",
+            "--out-dir", str(tmp_path), "--spectral-loss-weight", "0.1",
+            "--spectral-loss-mode", "log", "--wholeclip-divergence"])
+        assert _tpu_artifacts() == before
+        written = json.loads((tmp_path / "QUALITY_GATE_CPU_W0p0625_SPECLOSS0p1_LOG.json")
+                             .read_text())
+        assert written == json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == result
+        assert result["spectral_loss_weight"] == 0.1 and result["spectral_loss_mode"] == "log"
+        div = result["wholeclip_divergence"]
+        assert set(div) == {"t_frames_compared", "interior_margin_frames", "rel_l2",
+                            "interior_rel_l2", "mean_abs", "mean_abs_vs_own_pred_err"}
+        # the JAX gate's interior: one chunk off each end, a quarter of the
+        # clip on clips of three chunks or less (the 15 s clip's whole-clip
+        # output is shorter than its tiled one)
+        t = div["t_frames_compared"]
+        assert t > 2 * 860 and div["interior_margin_frames"] == (860 if t > 3 * 860 else t // 4)
+        assert all(np.isfinite(v) and v >= 0 for v in div.values())
 
 
 class TestBenchTrain:

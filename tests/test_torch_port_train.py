@@ -377,11 +377,12 @@ class TestFit:
         y = synth.synthesize_waveform(n_iter=2)
         assert y.ndim == 1 and len(y) > 44100 and np.all(np.isfinite(y))
 
-    def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path):
+    def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path, monkeypatch):
         """The device-resident path (item 6) has landed: ``fit`` and the
         four resident methods run on a file without audio as far as that
         allows (the store names --store-audio); orbax (item 7a), the mesh
-        and ZeRO (item 9) and --debug-nans (item 10) still raise."""
+        and ZeRO (item 9) still raise. --debug-nans (item 10) has landed:
+        the CLI trains under NaN debugging with no false positive."""
         tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2), exp_root=str(tmp_path),
                      device="cpu")
         with pytest.raises(ValueError, match="store-audio"):
@@ -404,11 +405,16 @@ class TestFit:
             tr.fit(tiny_h5, store_sharding="data")
         with pytest.raises(NotImplementedError, match="item 7a"):
             tr.fit(tiny_h5, checkpoint_format="orbax")
-        for flags, item in ((["--debug-nans"], "item 10"), (["--mesh-data", "2"], "item 9"),
-                            (["--zero-opt"], "item 9"), (["--ckpt-format", "orbax"], "item 7a")):
+        for flags, item in ((["--mesh-data", "2"], "item 9"), (["--zero-opt"], "item 9"),
+                            (["--ckpt-format", "orbax"], "item 7a")):
             with pytest.raises(NotImplementedError, match=item):
                 train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "r"]
                                + flags)
+        monkeypatch.chdir(tmp_path)
+        train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "d",
+                        "--batch-size", "2", "--width-mult", str(1 / 16), "--debug-nans"])
+        assert ckpt.latest_checkpoint(str(tmp_path / "experiments" / "d")) is not None
+        assert not torch.is_anomaly_enabled()
 
     def test_cli_trains_with_stream_bf16(self, tiny_h5, tmp_path, monkeypatch):
         monkeypatch.chdir(tmp_path)
