@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and data paths, its
 optimizer options and checkpoints, the autoencoder family, its deployment
-programs, support code and daemon soak, and its fused conv-block kernel on
-one NVIDIA GPU and check them. Each phase prints its seconds.
+programs, support code and daemon soak, its multi-device layer and its
+fused conv-block kernel on one NVIDIA GPU and check them. Each phase
+prints its seconds.
 
     python3 chip_smoke.py
 
@@ -136,6 +137,36 @@ scipy and the standard library. Phases, each reported on its own lines:
      asserts (isolation of the malformed requests, no cache warning, finite
      non-silent WAVs, 300 launches of each glue kernel per Griffin-Lim run,
      the novel-length probe); per-class p50/p99, requests/s, peak memory;
+  20. the multi-device layer (``parallel/``) on a process group of this
+     one card (NCCL; one card cannot host two NCCL ranks, so the multi-rank
+     paths are held on gloo CPU ranks by the tests): a (1, 1) mesh
+     ``Trainer`` with ZeRO-1 takes a step at batch 16, T 860, full width,
+     bf16, and its weights must equal the plain ``Trainer``'s step from the
+     same weights, batch and dropout seed, with 10 + 10 dropout launches;
+     a ``.pt`` checkpoint written after two steps (width 1/4, every
+     optimizer option, on one device and on the mesh with ZeRO-1) resumes
+     into a fresh ``Trainer`` whose next two steps are bit-equal;
+     the time-sharded forward of a 30 s clip (5,160 frames, padded) against
+     ``whole_clip_forward`` in float32 (within 1e-3 of the peak) and bf16
+     (mean difference at most the bf16 forward's own mean distance from
+     float32), then one time-sharded train step on that clip in
+     float32 against the unsharded step (loss within 1e-5, loss after one
+     Adam step within 1e-3) and its gradients in float64 (relative L2
+     within 1e-9);
+     ``sharded_griffinlim_from_log_power`` on the clip's spectrogram
+     bit-equal to ``griffinlim`` from the same phase field with 300
+     launches of each glue kernel; the kernels at the shapes a mesh of
+     two ranks gives them: the dropout kernel's masks bit-equal to
+     ``dropout_mask_reference`` under the mesh's seed folding
+     (``fold_seed`` of the data rank, and of the model rank for fc1's
+     column slice) at DenseConcat's (2 data, 2 model) shapes, and one
+     Schwarz block (30 iterations) of Griffin-Lim through the glue kernels
+     on each of two ranks' extended slices of the clip (t_loc + 2 halo
+     frames, ``gl_shard.rank_inputs``) within 1e-3 of the peak of the
+     plain istft/stft path; ``synthesize_whole_clip(mesh,
+     shard_gl=True)`` equal to ``shard_gl=False`` and ``bulk_griffinlim``
+     over the (1, 1) mesh equal to per-clip Griffin-Lim (300 launches of
+     each glue kernel per run); each part's seconds and peak memory;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -152,10 +183,12 @@ Lines starting ``metric`` carry the serving system's numbers under the
 names ``scripts/bench_inference.py`` prints, and the train step's under
 ``scripts/bench_train.py``'s. The glue kernels' ``launches`` in the
 kernels' JSON record sum their counts over phases 4, 6-9, 15 (three
-requests), 17 (the programs and the live runs they are held to), 18 and
-19 (the soak), the dropout kernel's over phases 11 (12 steps), 13 (the
-resident epoch and the evaluation), 14 (12 steps), 15 (4 microbatch
-calls and 24 timed steps) and 18 (8 steps, 2 of them NaN-debugged). The
+requests), 17 (the programs and the live runs they are held to), 18, 19
+(the soak) and 20 (sharded Griffin-Lim, two whole clips and two bulk
+clips), the dropout kernel's over phases 11 (12 steps), 13 (the resident
+epoch and the evaluation), 14 (12 steps), 15 (4 microbatch calls and 24
+timed steps), 18 (8 steps, 2 of them NaN-debugged) and 20 (the mesh
+step). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -1736,6 +1769,368 @@ def soak_phase(torch, glue, state, cfg, tmp) -> int:
     return r["glue_launches"]["gl_ola_nola"]
 
 
+# ---- phase 20: the multi-device layer on a 1-rank NCCL group -----------------
+
+MESH_CLIP_SECONDS = 30.0
+TS_FWD_TOL_F32 = 1e-3   # max |sharded - whole| / peak, float32 (JAX: 2e-3 + 1e-3 rel at 1/16)
+# bfloat16: mean |sharded - whole| at most the bf16 forward's own mean
+# distance from the float32 forward. Both paths round every layer to 8
+# bits; two independent roundings of that size would lie about 1.4 times it
+# apart (0.36 of it at width 1/16 on the CPU, 0.56 at full width on the H100)
+TS_FWD_TOL_BF16 = 1.0
+# float32 gradients of this model move by percents where the rounding of
+# a forward carries an element across a LeakyReLU, MaxPool or L1 kink
+# (tests/torch_port_kinks.py; 1.8e-2 between the two paths at full width),
+# so whether both paths compute the same gradient is checked in float64:
+# relative L2 of all gradients
+TS_GRAD_TOL_F64 = 1e-9
+TS_STEP_TOL = 1e-3      # relative difference of the loss after one Adam step, float32
+MESH_GL_TOL = 1e-3      # glue vs plain Griffin-Lim on a rank's slice: max |diff| / peak
+
+
+def _part(name: str, t0: float, torch) -> None:
+    torch.cuda.synchronize()
+    print(f"multi-device: {name}: {time.perf_counter() - t0:.2f} s, max_memory_allocated_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _rel_l2(got: list, want: list) -> float:
+    """Relative L2 distance of two lists of tensors, taken as one vector."""
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want))
+    return (num / sum(float((b ** 2).sum()) for b in want)) ** 0.5
+
+
+def multidevice_phase(torch, dk, glue, binf, state, cfg, tmp):
+    """The multi-device layer on a process group of this one card (NCCL):
+    the (1, 1) mesh Trainer with ZeRO-1 against the plain Trainer, and
+    ``.pt`` resumes on one device and on the mesh; the
+    time-sharded forward of a 30 s clip against ``whole_clip_forward``
+    (float32 and bfloat16) and its train step against the unsharded one;
+    sharded Griffin-Lim against ``griffinlim`` from one phase field; the
+    serving options (``shard_gl``, bulk Griffin-Lim over the data ranks);
+    between them, the dropout and glue kernels at the shapes a mesh of two
+    ranks gives them, against their plain versions. Returns (dropout
+    launches, glue launches, the dropout masks' max |kernel - plain|)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.infer import bulk
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as S
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+    from ml_music_style_transfer_tpu_torch.parallel import gl_shard
+    from ml_music_style_transfer_tpu_torch.parallel import mesh as pmesh
+    from ml_music_style_transfer_tpu_torch.parallel import time_shard as tsh
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, stage_batch
+
+    cuda = torch.device("cuda")
+    pmesh.distributed_init("cuda", init_method=f"tcp://localhost:{pmesh.free_port()}",
+                           world_size=1, rank=0)
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    tmesh = pmesh.make_axis_mesh(1, "time", device="cuda")
+    print(f"multi-device: NCCL group of {dist.get_world_size()} rank, meshes "
+          f"{pmesh.mesh_shape(mesh)} and {pmesh.mesh_shape(tmesh)}")
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the mesh Trainer (DP all-reduce + ZeRO-1) against the plain one
+    t0 = time.perf_counter()
+    raw = host_arrays(16, seed=5)
+    cond_key, target_key = sorted(k for k in raw if k.startswith("spec_"))[:2]
+    host = {"midi": raw["pianoroll"], "onoff": raw["onoff"],
+            "cond": np.ascontiguousarray(raw[cond_key].transpose(0, 2, 1)),
+            "target": np.ascontiguousarray(raw[target_key].transpose(0, 2, 1)),
+            "weight": np.ones((16,), np.float32)}
+    plain = Trainer(ModelConfig(), TrainConfig(batch_size=16), device="cuda")
+    plain.init_state(0)
+    meshed = Trainer(ModelConfig(), TrainConfig(batch_size=16, zero_opt=True), device="cuda",
+                     mesh=mesh)
+    meshed.init_state(0)
+    check(type(meshed.optimizer).__name__ == "ZeroOptimizer", "the mesh Trainer has no ZeRO")
+    batch = stage_batch(host, cuda)
+    seed = plain.next_dropout_seed()
+    dk.reset_launches()
+    loss_p = float(plain.train_step(batch, seed))
+    want = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
+    dk.reset_launches()
+    loss_m = float(meshed.train_step(meshed.shard_batch(batch), seed))
+    launches = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(plain.model.parameters(), meshed.model.parameters()))
+    print(f"multi-device: mesh (1, 1) ZeRO-1 step loss {loss_m:.6f} vs plain {loss_p:.6f}; "
+          f"max |weights - plain weights| after the step {diff:.3e}; dropout launches "
+          f"{launches} (plain {want})")
+    check(launches == (10, 10) and want == (10, 10), f"dropout launches {launches}, {want}")
+    n_dropout = sum(launches)
+    check(loss_m == loss_p and diff == 0.0, "the mesh ZeRO-1 step differs from the plain step")
+    del plain, meshed, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _part("mesh Trainer step (batch 16, T 860, bf16, full width)", t0, torch)
+
+    # checkpoints: a .pt written after two steps resumes bit for bit, on one
+    # device and on the mesh with ZeRO-1 (every optimizer option on)
+    t0 = time.perf_counter()
+    small = {k: v[:4] for k, v in host.items()}
+    batch = stage_batch(small, cuda)
+    opts = dict(batch_size=4, adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                grad_clip_norm=1.0, warmup_steps=2, ema_decay=0.999, grad_accum=2)
+    for zero in (False, True):
+        def trainer(seed):
+            tr = Trainer(ModelConfig(width_mult=0.25), TrainConfig(zero_opt=zero, **opts),
+                         device="cuda", mesh=mesh if zero else None)
+            tr.init_state(seed)
+            return tr
+
+        a = trainer(0)
+        for s in range(2):
+            a.train_step(a.shard_batch(batch), 100 + s)
+        path = ckpt.save_checkpoint(tmp, 1, a.state_dict(1))
+        b = trainer(1)
+        b.load_state(ckpt.restore_checkpoint(path, device=cuda))
+        os.remove(path)
+        la = [float(a.train_step(a.shard_batch(batch), 200 + s)) for s in range(2)]
+        lb = [float(b.train_step(b.shard_batch(batch), 200 + s)) for s in range(2)]
+        diff = max(float((x.detach() - y.detach()).abs().max()) for x, y in
+                   zip(a.model.parameters(), b.model.parameters()))
+        print(f"multi-device: .pt resume ({'(1, 1) mesh, ZeRO-1' if zero else 'one device'}, "
+              f"width 1/4, every optimizer option): losses after it {la} vs {lb}, max "
+              f"|weights - resumed weights| {diff:.3e}")
+        check(la == lb and diff == 0.0, "a resumed Trainer differs from the one it saved")
+        del a, b
+    del batch
+    _part("checkpoint resume", t0, torch)
+
+    # 2. the time-sharded forward of a 30 s clip, and its train step
+    t0 = time.perf_counter()
+    midi, wav = binf.make_clip(tmp, "mesh30", MESH_CLIP_SECONDS, 77, timbre_seconds=30.0)
+    synth = S.AudioSynthesizer(tmp, midi, wav, model_cfg=cfg, params=state, device="cuda")
+    roll, onoff, cond, t_total = synth.process_whole_clip(midi, wav)
+    want = synth.predict_spectrogram_whole_clip(roll, onoff, cond, t_total)
+    got = synth.predict_spectrogram_whole_clip(roll, onoff, cond, t_total, mesh=tmesh)
+    f32 = S.build_model(dataclasses.replace(cfg, compute_dtype="float32"), state, cuda)
+    f32.requires_grad_(True)
+
+    def up(a, t):
+        return torch.from_numpy(np.ascontiguousarray(a[None, :t], np.float32)).to(cuda)
+
+    xs = [up(a, t_total) for a in (roll, cond, onoff)]
+    with torch.no_grad():
+        whole = f32(*xs).float()
+    t_out = whole.shape[1]
+    w32 = whole[0].cpu().numpy()
+    err16, bf16_scale = float(np.abs(got - want).mean()), float(np.abs(want - w32).mean())
+    print(f"multi-device: time-sharded forward, {t_total} frames (t_out {t_out}), bf16: mean "
+          f"|sharded - whole| {err16:.4e}, max/peak {np.abs(got - want).max() / np.abs(want).max():.3e}; "
+          f"bf16's own mean distance from float32 {bf16_scale:.4e} (tolerance "
+          f"{TS_FWD_TOL_BF16} of it)")
+    check(got.shape == want.shape == w32.shape and err16 <= TS_FWD_TOL_BF16 * bf16_scale,
+          "the bf16 time-sharded forward disagrees with whole_clip_forward")
+    fn, t_pad, _ = tsh.make_time_sharded_forward(f32, tmesh, t_total)
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, t_pad - x.shape[1]))
+
+    with torch.no_grad():
+        sharded = fn(*[pad(x) for x in xs])[:, :t_out]
+    err32 = float((sharded - whole).abs().max() / whole.abs().max())
+    print(f"multi-device: time-sharded forward, float32: max_abs_err/peak {err32:.3e} "
+          f"(tolerance {TS_FWD_TOL_F32}), padded to {t_pad} frames")
+    check(err32 <= TS_FWD_TOL_F32, "the float32 time-sharded forward disagrees")
+    _part("time-sharded forward (30 s clip, full width)", t0, torch)
+
+    t0 = time.perf_counter()
+    target = torch.rand((1, t_out, 1025), generator=torch.Generator().manual_seed(9)).to(cuda) * 8
+    w0 = [p.detach().clone() for p in f32.parameters()]
+    opt = torch.optim.Adam(f32.parameters(), lr=1e-4, fused=True)
+    loss_p = torch.mean(torch.abs(f32(*xs).float() - target))
+    loss_p.backward()
+    g_p = [p.grad.detach().clone() for p in f32.parameters()]
+    opt.step()
+    with torch.no_grad():
+        post_p = float(torch.mean(torch.abs(f32(*xs).float() - target)))
+    del opt
+    with torch.no_grad():
+        for p, w in zip(f32.parameters(), w0):
+            p.copy_(w)
+            p.grad = None
+    tst = tsh.make_time_sharded_train_step(f32, tmesh, t_total, learning_rate=1e-4)
+    args = [pad(x) for x in xs] + [pad(target)]
+    loss_s, grads = tst.value_and_grad(*args)
+    rel = _rel_l2(list(grads.values()), g_p)
+    tst.optimizer.step()
+    with torch.no_grad():
+        post_s = float(torch.mean(torch.abs(fn(*args[:3])[:, :t_out] - target)))
+    step_rel = abs(post_s - post_p) / abs(post_p)
+    print(f"multi-device: time-sharded train step, float32: loss {float(loss_s):.6f} vs "
+          f"unsharded {float(loss_p):.6f}; gradients' relative L2 {rel:.3e}; loss after one "
+          f"Adam step {post_s:.6f} vs {post_p:.6f} (relative {step_rel:.3e}, tolerance "
+          f"{TS_STEP_TOL})")
+    check(abs(float(loss_s) - float(loss_p)) <= 1e-5 * abs(float(loss_p)),
+          "the time-sharded loss disagrees")
+    check(step_rel <= TS_STEP_TOL, "the time-sharded train step disagrees with the unsharded one")
+    del f32, tst, w0, g_p, grads, whole, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    _part("time-sharded train step (30 s clip, full width, float32)", t0, torch)
+
+    t0 = time.perf_counter()
+    f64 = S.build_model(dataclasses.replace(cfg, compute_dtype="float64"), state, cuda).double()
+    f64.requires_grad_(True)
+    xs, target = [x.double() for x in xs], target.double()
+    loss_p = torch.mean(torch.abs(f64(*xs) - target))
+    loss_p.backward()
+    g_p = [p.grad.detach().clone() for p in f64.parameters()]
+    f64.zero_grad(set_to_none=True)
+    tst = tsh.make_time_sharded_train_step(f64, tmesh, t_total)
+    loss_s, grads = tst.value_and_grad(*[pad(x) for x in xs], pad(target))
+    rel = _rel_l2(list(grads.values()), g_p)
+    print(f"multi-device: time-sharded gradients, float64: loss {float(loss_s):.12f} vs "
+          f"{float(loss_p):.12f}; gradients' relative L2 {rel:.3e} (tolerance {TS_GRAD_TOL_F64})")
+    check(rel <= TS_GRAD_TOL_F64, "the time-sharded gradients differ from the unsharded ones")
+    del f64, tst, g_p, grads, xs, target
+    gc.collect()
+    torch.cuda.empty_cache()
+    _part("time-sharded gradients (30 s clip, full width, float64)", t0, torch)
+
+    # 3. sharded Griffin-Lim on the clip's spectrogram, from one phase field
+    t0 = time.perf_counter()
+    spec, t_out = synth._predict_whole_clip_device()
+    glue.reset_launches()
+    with torch.inference_mode():
+        wav_s = gl_shard.sharded_griffinlim_from_log_power(spec, tmesh, n_iter=N_ITER, seed=0)
+    n_gl = counted(glue, N_ITER, "sharded Griffin-Lim")
+    with torch.inference_mode():
+        wav_p = tgl.griffinlim_from_log_power(spec.transpose(0, 1).contiguous(),
+                                              generator=torch.Generator().manual_seed(0),
+                                              n_iter=N_ITER, device=cuda)
+    equal = bool(torch.equal(wav_s[:wav_p.shape[0]], wav_p))
+    print(f"multi-device: sharded Griffin-Lim ({spec.shape[0]} frames, {N_ITER} iterations, 1 rank) "
+          f"bit-equal to griffinlim from the same phase field: {equal}; glue launches "
+          f"{N_ITER} of each")
+    check(equal and bool((wav_s[wav_p.shape[0]:] == 0).all()),
+          "sharded Griffin-Lim differs from griffinlim")
+    _part("sharded Griffin-Lim", t0, torch)
+
+    # the kernels at the shapes of a mesh of two ranks, against their plain
+    # versions (these launches are comparisons, not the paths')
+    t0 = time.perf_counter()
+    mask_err = mesh_dropout_check(torch, dk)
+    mesh_glue_check(torch, glue, spec[:t_out], t_total, cfg, synth.hp)
+    _part("kernels at two ranks' shapes", t0, torch)
+
+    # 4. the serving options
+    t0 = time.perf_counter()
+    glue.reset_launches()
+    y_on = synth.synthesize_whole_clip(n_iter=N_ITER, mesh=tmesh, shard_gl=True)
+    y_off = synth.synthesize_whole_clip(n_iter=N_ITER, mesh=tmesh, shard_gl=False)
+    n_gl += counted(glue, 2 * N_ITER, "synthesize_whole_clip(mesh, shard_gl=True/False)")
+    check(np.array_equal(y_on, y_off) and y_on.shape == (t_out * 256,),
+          "synthesize_whole_clip(shard_gl=True) differs from shard_gl=False")
+    specs = torch.stack([spec.transpose(0, 1), 0.9 * spec.transpose(0, 1)]).contiguous()
+    glue.reset_launches()
+    with torch.inference_mode():
+        wavs = bulk.bulk_griffinlim(specs, [0, 1], mesh=mesh, n_iter=N_ITER)
+    n_gl += counted(glue, 2 * N_ITER, "bulk Griffin-Lim over the data ranks")
+    with torch.inference_mode():
+        per_clip = [tgl.griffinlim_from_log_power(s, generator=torch.Generator().manual_seed(i),
+                                                  n_iter=N_ITER, device=cuda)
+                    for i, s in enumerate(specs)]
+    check(all(torch.equal(w, p) for w, p in zip(wavs, per_clip)),
+          "bulk Griffin-Lim over the mesh differs from per-clip Griffin-Lim")
+    print(f"multi-device: synthesize_whole_clip(mesh, shard_gl=True) == shard_gl=False "
+          f"({y_on.shape[0]} samples); bulk_griffinlim over the (1, 1) mesh == per clip")
+    _part("serving options", t0, torch)
+    dist.destroy_process_group()
+    return n_dropout, n_gl, mask_err
+
+
+def mesh_dropout_check(torch, dk, data: int = 2, model: int = 2) -> float:
+    """DenseConcat's dropout masks on a (data, model) mesh at full width
+    and batch 16: each data rank's batch share, fc1's hidden output sliced
+    over the model axis. The first mask folds the data and the model rank
+    into the seed, the second only the data rank (``fold_seed``). Kernel
+    against ``dropout_mask_reference`` bit for bit; data ranks draw other
+    masks, model ranks other first masks and the same second; rank 0 one
+    device's. Returns the max |kernel - plain|."""
+    seed, rate, dt = DROPOUT_SEED, DROPOUT_RATE, torch.bfloat16
+    shapes = dense_concat_shapes(batch=16 // data)
+    err = 0.0
+    for j in range(0, len(shapes), 2):
+        (b, hidden, t), out = shapes[j], shapes[j + 1]
+        first, second = {}, {}
+        for d in range(data):
+            sd = dk.fold_seed(seed, d)
+            for m in range(model):
+                s1 = dk.fold_seed(sd, m)
+                for masks, s, call, shape in ((first, s1, j, (b, hidden // model, t)),
+                                              (second, sd, j + 1, out)):
+                    masks[d, m] = dk.dropout_mask(s, call, shape, rate, dt)
+                    ref = dk.dropout_mask_reference(s, call, shape, rate, dt, "cuda")
+                    err = max(err, float((masks[d, m].float() - ref.float()).abs().max()))
+                    check(torch.equal(masks[d, m], ref),
+                          f"dropout kernel differs from its plain version at {shape}, "
+                          f"mesh rank ({d}, {m})")
+        check(torch.equal(first[0, 0], dk.dropout_mask(seed, j, (b, hidden // model, t), rate,
+                                                       dt)),
+              "rank (0, 0) does not draw one device's mask")
+        for m in range(model):
+            check(not torch.equal(first[0, m], first[1, m])
+                  and not torch.equal(second[0, m], second[1, m]),
+                  "two data ranks drew the same dropout mask")
+        for d in range(data):
+            check(torch.equal(second[d, 0], second[d, 1]) and not torch.equal(first[d, 0],
+                                                                              first[d, 1]),
+                  "fc2's mask differs across model ranks or fc1's does not")
+    print(f"multi-device: dropout kernel under the ({data}, {model}) mesh's seed folding at "
+          f"{len(shapes) // 2} DenseConcats x {data * model} ranks x 2 masks: bit-equal to "
+          f"dropout_mask_reference (max_abs_err {err:.3e})")
+    return err
+
+
+def mesh_glue_check(torch, glue, spec, t_total: int, cfg, hp, n: int = 2, halo: int = 32,
+                    rounds: int = 10) -> None:
+    """One Schwarz block of sharded Griffin-Lim (``N_ITER // rounds``
+    iterations) on each of n ranks' extended slices (t_loc + 2 halo
+    frames) of the (t_out, bins) spectrogram ``spec``, padded as the
+    time-sharded forward pads the clip: through the glue kernels (a launch
+    of each per iteration) and through the plain istft/stft path, within
+    ``MESH_GL_TOL`` of the plain waveform's peak."""
+    import torch.nn.functional as F
+
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+    from ml_music_style_transfer_tpu_torch.ops import stft as tstft
+    from ml_music_style_transfer_tpu_torch.parallel import gl_shard
+    from ml_music_style_transfer_tpu_torch.parallel import time_shard as tsh
+
+    t_pad = tsh.padded_length(t_total, n, cfg.depth)
+    full = F.pad(spec, (0, 0, 0, t_pad - spec.shape[0]))
+    t_loc, bins, k = t_pad // n, spec.shape[1], N_ITER // rounds
+    n_fft = 2 * (bins - 1)
+    field = gl_shard.phase_field(bins, t_pad, seed=0).cuda()
+    for r in range(n):
+        mag, angles = gl_shard.rank_inputs(full, field, r, t_loc, halo, hp.clip_log_power_max)
+        check(glue.supported(mag.shape[-1], n_fft, hp.ws),
+              f"the glue kernels do not take a rank's {mag.shape[-1]} frames")
+        wavs = []
+        for use_glue in (True, False):
+            glue.reset_launches()
+            with torch.inference_mode():
+                a, _ = tgl.gl_steps(mag, (angles, torch.zeros_like(angles)), k, hp.ws, n_fft,
+                                    use_pallas_glue=use_glue)
+                wavs.append(tstft.istft(mag * a, hp.ws, n_fft))
+            counted(glue, k if use_glue else 0, f"Griffin-Lim on rank {r}'s slice")
+        err = float((wavs[0] - wavs[1]).abs().max() / wavs[1].abs().max())
+        print(f"multi-device: rank {r} of {n}: {mag.shape[-1]} frames ({t_loc} + 2 x {halo} "
+              f"halo), {k} iterations through the glue kernels vs the plain path: max |diff| / "
+              f"peak {err:.3e} (tolerance {MESH_GL_TOL}); {k} launches of each")
+        check(err <= MESH_GL_TOL, f"the glue kernels disagree on rank {r}'s slice")
+
+
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
 
 FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
@@ -1980,6 +2375,15 @@ def main() -> None:
             else:
                 gl_launches += timed(phase, soak_phase, torch, glue, state, cfg, tmp)
     check(not any(fc.LAUNCHES.values()), "phases 17-19 launched the fused conv kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        md_dropout, md_gl, md_err = timed("20 (multi-device)", multidevice_phase, torch, dk,
+                                          glue, binf, state, cfg, tmp)
+    dropout_launches += md_dropout
+    dropout_err = max(dropout_err, md_err)
+    gl_launches += md_gl
+    check(not any(fc.LAUNCHES.values()), "phase 20 launched the fused conv kernel")
     del state
     synth_mod.clear_caches()
     gc.collect()

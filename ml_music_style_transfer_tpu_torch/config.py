@@ -4,8 +4,7 @@ fields, defaults and ``scaled()`` rounding).
 
 ``PIANO_SCORES`` and ``STYLES`` are preprocessing's defaults.
 ``TrainConfig`` keeps every field of the JAX one so configurations compare
-field by field; the options the port does not train with yet are refused
-by ``unsupported_train_options`` where a ``Trainer`` is built.
+field by field.
 """
 from __future__ import annotations
 
@@ -131,7 +130,8 @@ class TrainConfig:
     spectral_loss_weight: float = 0.0
     spectral_loss_mode: str = "linlog"  # "linlog", "log" or "direct"
     # Optimizer options (train/optim.py); the defaults are plain f32 Adam.
-    # A mesh and ZeRO wait for multi-device (unsupported_train_options).
+    # mesh_shape (data, model) > (1, 1) trains over the launch's ranks and
+    # zero_opt shards the optimizer state over the data axis (train/loop.py).
     adam_mu_dtype: str | None = None
     adam_nu_dtype: str | None = None
     grads_dtype: str | None = None
@@ -141,20 +141,6 @@ class TrainConfig:
     mesh_shape: Tuple[int, int] = (1, 1)
     grad_accum: int = 1
     zero_opt: bool = False
-
-
-_MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 9 (multi-device)"
-
-
-def unsupported_train_options(cfg: TrainConfig) -> list[str]:
-    """Each option of ``cfg`` the port does not train with yet, with the
-    ROADMAP item that brings it; empty when ``cfg`` is fully supported."""
-    checks = (
-        ("zero_opt", cfg.zero_opt, _MULTI_DEVICE_ITEM),
-        ("mesh_shape", tuple(cfg.mesh_shape) != (1, 1), _MULTI_DEVICE_ITEM),
-    )
-    return [f"{name}={getattr(cfg, name)!r} waits for {item}"
-            for name, bad, item in checks if bad]
 
 
 DEFAULT_DSP = DSPConfig()

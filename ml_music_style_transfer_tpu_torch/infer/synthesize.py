@@ -32,8 +32,10 @@ the card and returns a ``fetch()``; the daemon (``scripts/serve.py``)
 overlaps the host work of one request with the card's work on the one
 before. Every host<->device crossing of the serving path goes through
 ``_stage``/``_fetch`` (``TRANSFER_LOG`` records them). The whole-clip path
-runs one forward over the whole clip (``parallel/time_shard.py``).
-Orbax checkpoints and every multi-device option arrive in later slices.
+runs one forward over the whole clip (``parallel/time_shard.py``); with a
+``mesh`` its time axis is sharded over the ranks of one mesh axis and
+Griffin-Lim can be too (``parallel/gl_shard.py``). Orbax checkpoints
+raise ``NotImplementedError`` (ROADMAP item 7a).
 """
 from __future__ import annotations
 
@@ -57,10 +59,11 @@ from ..midi import pianoroll as pr
 from ..models import PerformanceNet
 from ..ops import griffinlim as tgl
 from ..ops import stft as tstft
+from ..parallel import comm
+from ..parallel import gl_shard as glsh
+from ..parallel import mesh as pmesh
 from ..parallel import time_shard as tsh
 from ..train import checkpoint as ckpt
-
-MULTI_DEVICE_ITEM = "ROADMAP queue 1 item 9 (multi-device)"
 
 # ---- transfer seams -------------------------------------------------------
 # All serving host<->device crossings go through _stage/_fetch/_fetch_async.
@@ -110,11 +113,22 @@ def _fetch_async(x: torch.Tensor) -> Callable[[], np.ndarray]:
     return fetch
 
 
-def _single_device(mesh, shard_gl=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= waits for {MULTI_DEVICE_ITEM}")
-    if shard_gl:
-        raise NotImplementedError(f"shard_gl=True waits for {MULTI_DEVICE_ITEM}")
+@torch.no_grad()
+def replicate_model(model: PerformanceNet, mesh, axis_name: str) -> PerformanceNet:
+    """``model`` with rank 0's weights on every rank of ``mesh``'s
+    ``axis_name``: broadcast once per (model, mesh) and remembered on the
+    model (the JAX package replicates params once per (checkpoint, mesh),
+    ``synthesize.py:493-528``)."""
+    done = model.__dict__.setdefault("_replicated_on", [])
+    if any(m is mesh for m in done):
+        return model
+    group = pmesh.axis_group(mesh, axis_name)
+    if comm.group_size(group) > 1:
+        src = torch.distributed.get_global_rank(group, 0)
+        for t in model.state_dict().values():
+            torch.distributed.broadcast(t, src, group=group)
+    done.append(mesh)
+    return model
 
 
 # ---- module-level serving caches -------------------------------------------
@@ -519,21 +533,39 @@ class AudioSynthesizer:
                 np.ascontiguousarray(spec[:t_total], np.float32), t_total)
 
     def predict_spectrogram_whole_clip(self, roll, onoff, cond_spec, t_total,
-                                       mesh=None) -> np.ndarray:
+                                       mesh=None, axis_name: str = "time") -> np.ndarray:
         """One forward over the entire clip, the reference's inference
         semantics (model/inference.py:82-84: no tiling, InstanceNorm
         statistics spanning the clip); host arrays in, (t_out, bins) out,
         t_out from the net's temporal ladder
-        (``time_shard.time_sharded_output_length``). Single device:
-        ``mesh`` must be None."""
-        _single_device(mesh)
+        (``time_shard.time_sharded_output_length``). With ``mesh`` the
+        time axis is sharded over its ``axis_name`` (every rank calls this
+        together and gets the whole result)."""
         dev = self.device
+        if mesh is None:
+            def up(a):
+                return _stage(np.asarray(a, np.float32)[None, :t_total], dev)
 
-        def up(a):
-            return _stage(np.asarray(a, np.float32)[None, :t_total], dev)
+            out = tsh.whole_clip_forward(self.model, up(roll), up(cond_spec), up(onoff))
+            return _fetch(out[0])
+        fn, t_pad, t_out = self._ts_forward(t_total, mesh, axis_name)
 
-        out = tsh.whole_clip_forward(self.model, up(roll), up(cond_spec), up(onoff))
-        return _fetch(out[0])
+        def up_local(a):
+            p = np.zeros((1, t_pad, a.shape[-1]), np.float32)
+            p[0, :t_total] = np.asarray(a, np.float32)[:t_total]
+            return tsh.shard_time(_stage(p, dev), mesh, axis_name)
+
+        with torch.inference_mode():
+            out = fn(up_local(roll), up_local(cond_spec), up_local(onoff))
+            full = comm.all_gather_cat(out[0], pmesh.axis_group(mesh, axis_name), 0)
+        return _fetch(full[:t_out])
+
+    def _ts_forward(self, t_total: int, mesh, axis_name: str):
+        """(fn, t_pad, t_out) of the time-sharded forward over ``mesh``'s
+        ``axis_name``, on this synthesizer's model replicated from the
+        axis's rank 0."""
+        replicate_model(self.model, mesh, axis_name)
+        return tsh.make_time_sharded_forward(self.model, mesh, t_total, axis_name)
 
     def _predict_whole_clip_device(self) -> tuple[torch.Tensor, int]:
         """Device-resident one-pass forward: returns the (t_gl, bins) device
@@ -555,17 +587,90 @@ class AudioSynthesizer:
         t_gl = -(-t_out // bucket) * bucket
         return F.pad(out[0], (0, 0, 0, t_gl - t_out)), t_out
 
-    def synthesize_whole_clip(self, n_iter: int = 300, mesh=None,
-                              shard_gl: bool | None = None) -> np.ndarray:
+    def prepare_whole_clip(self, mesh, axis_name: str = "time", shard_gl: bool | None = None,
+                           gl_halo: int = 32, gl_rounds: int = 10) -> dict:
+        """The part of ``synthesize_whole_clip`` over ``mesh`` that waits on
+        no other rank: reads the MIDI and the audio, puts the cond spec and
+        this rank's slices of the int8 rolls on the device, resolves
+        ``shard_gl`` and checks the Griffin-Lim options (raising
+        ``parallel/gl_shard.py``'s ``ValueError``s here, before any
+        collective). A server whose ranks must agree that a request can run
+        calls it on each and hands the result to ``synthesize_whole_clip``
+        (``scripts/serve.py``)."""
+        hp, dev = self.hp, self.device
+        roll, onoff = self._whole_clip_rolls(self.midi_source)
+        t_total = roll.shape[0]
+        n = pmesh.axis_size(mesh, axis_name)
+        t_pad = tsh.padded_length(t_total, n, self.model.cfg.depth)
+        if shard_gl is None:
+            shard_gl = n > 1 and t_pad // n > gl_halo
+        if shard_gl and n > 1:
+            glsh.check_options(t_pad, n, gl_halo, gl_rounds, axis_name)
+        spec_dev, n_valid = self._cond_spec_device(self.audio_source)
+        cond = spec_dev[torch.arange(t_pad, device=dev) % n_valid]
+        cond = torch.where(torch.arange(t_pad, device=dev)[:, None] < t_total, cond, 0.0)
+
+        def rolls_local(a):
+            p = np.zeros((1, t_pad, a.shape[-1]), np.int8)
+            p[0, :t_total] = a
+            return tsh.shard_time(_stage(p, dev), mesh, axis_name)
+
+        return {"mesh": mesh, "axis_name": axis_name, "t_total": t_total, "shard_gl": shard_gl,
+                "gl_halo": gl_halo, "gl_rounds": gl_rounds, "roll": rolls_local(roll),
+                "onoff": rolls_local(onoff), "cond": tsh.shard_time(cond[None], mesh, axis_name)}
+
+    def _predict_whole_clip_sharded(self, prep: dict):
+        """The time-sharded one-pass forward of a ``prepare_whole_clip``
+        result: returns the whole (t_pad, bins) device spec on every rank
+        (zero past t_out), t_pad and t_out."""
+        mesh, axis_name = prep["mesh"], prep["axis_name"]
+        fn, t_pad, t_out = self._ts_forward(prep["t_total"], mesh, axis_name)
+        with torch.inference_mode():
+            out = fn(prep["roll"].float(), prep["cond"], prep["onoff"].float())
+            full = comm.all_gather_cat(out[0], pmesh.axis_group(mesh, axis_name), 0)
+        return full, t_pad, t_out
+
+    def synthesize_whole_clip(self, n_iter: int = 300, mesh=None, axis_name: str = "time",
+                              shard_gl: bool | None = None, gl_halo: int = 32,
+                              gl_rounds: int = 10, prepared: dict | None = None) -> np.ndarray:
         """Device-resident whole-clip serving: one forward over the whole
         clip, then Griffin-Lim over its t_out frames rounded up to half a
         chunk (zero log-power past t_out), cut to t_out * ws samples; only
-        the waveform comes back. ``mesh`` must be None and ``shard_gl``
-        falsy (the time-sharded Griffin-Lim is multi-device)."""
-        _single_device(mesh, shard_gl)
-        spec, t_out = self._predict_whole_clip_device()
-        wav = self._gl_waveform(spec, n_iter)
-        return _fetch(wav[: t_out * self.hp.ws])
+        the waveform comes back.
+
+        ``mesh``: shard the forward's time axis over its ``axis_name``
+        (every rank of the axis calls this together; each gets the
+        waveform). ``shard_gl``: run Griffin-Lim time-sharded too
+        (``parallel/gl_shard.py``, ``gl_halo`` frames of context and
+        ``gl_rounds`` Schwarz rounds); None (the JAX rule) turns it on where
+        the axis has more than one rank and each rank's share of the
+        padded clip exceeds the halo; False gathers the prediction and runs
+        one device's Griffin-Lim on every rank. On one rank both give the
+        same waveform. With no mesh ``shard_gl`` changes nothing (one
+        device). ``prepared``: this rank's ``prepare_whole_clip`` result,
+        which then stands for ``mesh`` and the options."""
+        hp = self.hp
+        if mesh is None and prepared is None:
+            spec, t_out = self._predict_whole_clip_device()
+            wav = self._gl_waveform(spec, n_iter)
+            return _fetch(wav[: t_out * hp.ws])
+        prep = prepared or self.prepare_whole_clip(mesh, axis_name, shard_gl, gl_halo, gl_rounds)
+        mesh, axis_name = prep["mesh"], prep["axis_name"]
+        full, t_pad, t_out = self._predict_whole_clip_sharded(prep)
+        n = pmesh.axis_size(mesh, axis_name)
+        bucket = hp.windows_per_chunk // 2
+        t_gl = -(-t_out // bucket) * bucket
+        spec_gl = F.pad(full[:t_out], (0, 0, 0, t_gl - t_out))
+        if prep["shard_gl"]:
+            # the padded clip's frames divide the axis; on one rank the
+            # gathered path's frames, so the waveform is the same
+            wav = glsh.sharded_griffinlim_from_log_power(
+                full if n > 1 else spec_gl, mesh, axis_name=axis_name, n_iter=n_iter,
+                hop_length=hp.ws, clip_max=hp.clip_log_power_max, halo=prep["gl_halo"],
+                seed=0, rounds=prep["gl_rounds"])
+        else:
+            wav = self._gl_waveform(spec_gl, n_iter)
+        return _fetch(wav[: t_out * hp.ws])
 
     # ---- serving ----------------------------------------------------------
     def synthesize_waveform_async(self, n_iter: int = 300, overlap: bool = True,

@@ -16,6 +16,18 @@ tests' float64 yardstick). Convolutions and linears are library calls
 (``torch.nn.functional``), as the JAX model leaves them to XLA outside any
 Pallas kernel. DenseConcat's training-mode dropout is the hand-written
 Philox kernel (``ops/kernels/dropout.py``).
+
+Tensor parallelism (the JAX package's ``tp_constrain``,
+``performance_net.py:65,86,92,100``, and ``parallel/mesh.py``'s
+``activation_constrainer``): ``_Affine.shard_`` keeps this rank's slice of
+a weight along the dim ``parallel/mesh.param_shard_dim`` names. A sharded
+conv or transposed conv computes its slice of the output channels from
+the whole input; InstanceNorm and LeakyReLU act per channel, so the block
+stays on the slice, and ``full`` joins the channels before the next conv
+(``parallel/comm.gather_channels``). DenseConcat's fc1 is column-parallel
+and fc2 row-parallel, whose partial outputs are summed over the model
+axis. A sharded module loads the whole tensors of an unsharded
+``state_dict`` (each rank keeps its slice).
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import dropout as _dropout
+from ..parallel import comm
 
 
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -82,17 +95,65 @@ def _dtype(name: str) -> torch.dtype:
 
 class _Affine(nn.Module):
     """A weight of ``shape`` plus a bias of ``n_bias``, float32, uninitialised
-    (the model initialises every parameter from one generator)."""
+    (the model initialises every parameter from one generator).
+
+    ``tp_group`` is None, or the model-axis group over which ``shard_``
+    split the weight along ``tp_dim`` (the bias too when ``tp_bias``)."""
 
     def __init__(self, shape, n_bias: int, compute_dtype: str, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.empty(n_bias, dtype=torch.float32, device=device))
         self.compute_dtype = _dtype(compute_dtype)
+        self.tp_group, self.tp_dim, self.tp_bias = None, None, False
 
     def _cast(self, x):
         dt = self.compute_dtype
         return x.to(dt), self.weight.to(dt), self.bias.to(dt)
+
+    @torch.no_grad()
+    def shard_(self, group, dim: int, bias: bool) -> None:
+        """Keep this rank's slice of the weight along ``dim`` (and of the
+        bias where ``bias``)."""
+        self.tp_group, self.tp_dim, self.tp_bias = group, dim, bias
+        self.weight = nn.Parameter(comm.local_slice(self.weight, group, dim).contiguous())
+        if bias:
+            self.bias = nn.Parameter(comm.local_slice(self.bias, group, 0).contiguous())
+
+    def tp_dims(self) -> dict[str, int]:
+        """{parameter name: sharded dim} of this module."""
+        if self.tp_group is None:
+            return {}
+        return {"weight": self.tp_dim, **({"bias": 0} if self.tp_bias else {})}
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a whole tensor (an unsharded state_dict) loads as this rank's slice
+        for name, dim in self.tp_dims().items():
+            key = prefix + name
+            t = state_dict.get(key)
+            if t is not None and t.shape != getattr(self, name).shape:
+                state_dict[key] = comm.local_slice(t, self.tp_group, dim)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _column_input(self, x):
+        """The whole input of a layer whose outputs are sharded: its
+        gradient is summed over the model axis."""
+        return comm.copy_to_group(x, self.tp_group) if self.tp_group is not None else x
+
+    def _bias_slice(self, b):
+        """The bias of this rank's output channels. A conv's bias stays
+        whole on every rank (the JAX rule): its gradient, nonzero on this
+        rank's slice only, is summed over the model axis."""
+        if self.tp_group is None or self.tp_bias:
+            return b
+        return comm.local_slice(comm.copy_to_group(b, self.tp_group), self.tp_group, 0)
+
+    def full(self, y):
+        """``y`` with every output channel: the slices joined (channel
+        dim 1) when the output channels are sharded."""
+        if self.tp_group is None:
+            return y
+        return comm.gather_channels(y, self.tp_group, 1)
 
 
 class Conv1x3(_Affine):
@@ -102,8 +163,8 @@ class Conv1x3(_Affine):
         super().__init__((out_ch, in_ch, 3), out_ch, compute_dtype, device)
 
     def forward(self, x):
-        x, w, b = self._cast(x)
-        return F.conv1d(x, w, b, padding=1)
+        x, w, b = self._cast(self._column_input(x))
+        return F.conv1d(x, w, self._bias_slice(b), padding=1)
 
 
 class ConvTranspose1dTorch(_Affine):
@@ -116,18 +177,26 @@ class ConvTranspose1dTorch(_Affine):
         self.stride, self.padding = stride, padding
 
     def forward(self, x):
-        x, w, b = self._cast(x)
-        return F.conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding)
+        x, w, b = self._cast(self._column_input(x))
+        return F.conv_transpose1d(x, w, self._bias_slice(b), stride=self.stride,
+                                  padding=self.padding)
 
 
 class Linear(_Affine):
-    """Linear over the channel axis of a channel-first (B, C, T) tensor."""
+    """Linear over the channel axis of a channel-first (B, C, T) tensor.
+
+    Sharded on dim 0 it is column-parallel (whole input, this rank's
+    output channels); on dim 1 row-parallel (this rank's input channels,
+    partial outputs summed over the model axis, then the whole bias)."""
 
     def __init__(self, in_f: int, out_f: int, compute_dtype: str = "bfloat16", device=None):
         super().__init__((out_f, in_f), out_f, compute_dtype, device)
 
     def forward(self, x):
-        x, w, b = self._cast(x)
+        if self.tp_dim == 1:
+            x, w, b = self._cast(x)
+            return comm.reduce_from_group(torch.matmul(w, x), self.tp_group) + b[:, None]
+        x, w, b = self._cast(self._column_input(x))
         return torch.matmul(w, x) + b[:, None]
 
 
@@ -144,8 +213,8 @@ class DownConv(nn.Module):
         self.pooling, self.slope, self.eps = pooling, slope, eps
 
     def forward(self, x):
-        x = leaky_relu(instance_norm(self.conv1(x), self.eps), self.slope)
-        x = leaky_relu(instance_norm(self.conv2(x), self.eps), self.slope)
+        x = self.conv1.full(leaky_relu(instance_norm(self.conv1(x), self.eps), self.slope))
+        x = self.conv2.full(leaky_relu(instance_norm(self.conv2(x), self.eps), self.slope))
         before_pool = x
         if self.pooling:
             x = F.max_pool1d(x, kernel_size=2, stride=2)
@@ -169,13 +238,13 @@ class UpConv(nn.Module):
         self.slope, self.eps = slope, eps
 
     def forward(self, skip, dec, cond=None):
-        x = leaky_relu(instance_norm(self.upconv(dec), self.eps), self.slope)
+        x = self.upconv.full(leaky_relu(instance_norm(self.upconv(dec), self.eps), self.slope))
         x = crop_and_concat(x, skip)
-        x = leaky_relu(instance_norm(self.conv1(x), self.eps), self.slope)
+        x = self.conv1.full(leaky_relu(instance_norm(self.conv1(x), self.eps), self.slope))
         if self.has_condition:
             x = crop_and_concat(x, cond)
         x = self.conv2(x)
-        return leaky_relu(instance_norm(x, self.eps), self.slope)
+        return self.conv2.full(leaky_relu(instance_norm(x, self.eps), self.slope))
 
 
 class DenseConcat(nn.Module):
@@ -202,7 +271,13 @@ class DenseConcat(nn.Module):
         x = torch.cat([audio_embed.to(dt), midi_embed.to(dt)], dim=1)
         x = F.relu(self.fc1(x))
         if train:
-            x = fast_dropout(x, dropout_seed, call_index, self.dropout_rate)
+            # under TP fc1's output is this rank's channel slice: each model
+            # rank draws its own mask. fc2's output is whole and the same on
+            # every model rank, so its mask is too (the seed unfolded).
+            seed1 = dropout_seed
+            if self.fc1.tp_group is not None:
+                seed1 = _dropout.fold_seed(seed1, comm.group_rank(self.fc1.tp_group))
+            x = fast_dropout(x, seed1, call_index, self.dropout_rate)
         x = F.relu(self.fc2(x))
         if train:
             x = fast_dropout(x, dropout_seed, call_index + 1, self.dropout_rate)
@@ -239,6 +314,6 @@ class MBRBlock(nn.Module):
         bands = torch.chunk(x, self.num_bands, dim=1)
         outs = []
         for band, c1, c2 in zip(bands, self.conv_list1, self.conv_list2):
-            t = leaky_relu(instance_norm(c1(band), self.eps), self.slope)
-            outs.append(instance_norm(c2(t), self.eps))
+            t = c1.full(leaky_relu(instance_norm(c1(band), self.eps), self.slope))
+            outs.append(c2.full(instance_norm(c2(t), self.eps)))
         return x + torch.cat(outs, dim=1)

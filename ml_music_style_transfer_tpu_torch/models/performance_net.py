@@ -32,8 +32,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from .layers import (ConvTranspose1dTorch, DenseConcat, DownConv, MBRBlock, UpConv, leaky_relu,
-                     stat_dtype)
+from .layers import (ConvTranspose1dTorch, DenseConcat, DownConv, MBRBlock, UpConv, _Affine,
+                     leaky_relu, stat_dtype)
 
 
 class OnsetOffsetEncoder(nn.Module):
@@ -122,6 +122,44 @@ class PerformanceNet(nn.Module):
             else:
                 nn.init.xavier_normal_(p, generator=generator)
 
+    def shard_tensor_parallel_(self, group) -> "PerformanceNet":
+        """Tensor parallelism over the model-axis ``group``: each
+        conv, transposed conv and DenseConcat linear keeps this rank's
+        slice along ``parallel/mesh.param_shard_dim`` (dims the axis does
+        not divide stay whole). The forward then gives every model rank the
+        unsharded model's output; ``load_state_dict`` takes an unsharded
+        state_dict and ``full_state_dict`` returns one."""
+        from ..parallel import comm, mesh as pmesh
+
+        n = comm.group_size(group)
+        for name, mod in self.named_modules():
+            if not isinstance(mod, _Affine):
+                continue
+            dim = pmesh.param_shard_dim(f"{name}.weight", mod.weight.shape, n)
+            if dim is not None:
+                bias_dim = pmesh.param_shard_dim(f"{name}.bias", mod.bias.shape, n)
+                mod.shard_(group, dim, bias_dim is not None)
+        return self
+
+    def tp_dims(self) -> dict[str, int]:
+        """{state_dict key: sharded dim} of the tensor-parallel parameters."""
+        return {f"{name}.{p}": d for name, mod in self.named_modules()
+                if isinstance(mod, _Affine) for p, d in mod.tp_dims().items()}
+
+    def tp_group(self):
+        """The model-axis group of a tensor-parallel model, else None."""
+        return next((m.tp_group for m in self.modules()
+                     if isinstance(m, _Affine) and m.tp_group is not None), None)
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The unsharded state_dict: tensor-parallel slices gathered over
+        the model axis (a collective: every model rank calls it)."""
+        from ..parallel import comm
+
+        dims, group = self.tp_dims(), self.tp_group()
+        return {k: comm.all_gather_cat(v, group, dims[k]) if k in dims else v
+                for k, v in self.state_dict().items()}
+
     def _encode(self, down: DownConv, x):
         if self.cfg.remat and torch.is_grad_enabled():
             return checkpoint(down, x, use_reentrant=False)
@@ -151,7 +189,7 @@ class PerformanceNet(nn.Module):
             x = up(skip, x, c)
         for j in range(1, 5):
             x = getattr(self, f"MBRBlock{j}")(x)
-        x = self.lastconv(x)
+        x = self.lastconv.full(self.lastconv(x))
         x = leaky_relu(x, self.cfg.leaky_relu_slope)
         return x.to(stat_dtype(x.dtype))
 

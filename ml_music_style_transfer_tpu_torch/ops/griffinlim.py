@@ -206,11 +206,13 @@ def griffinlim_from_log_power(
     length: int | None = None,
     use_pallas_glue: bool = True,
     device: str | torch.device | None = "cuda",
+    init_phase=None,
 ) -> torch.Tensor:
     """Full synthesis: (bins, frames) log-power spec -> waveform
-    (inference.py:109-110: compression inverse, then Griffin-Lim)."""
+    (inference.py:109-110: compression inverse, then Griffin-Lim);
+    ``init_phase`` as ``griffinlim``'s."""
     dev = resolve_device(device)
     magnitude = _stft.inverse_log_power(_as_tensor(spec, dev), clip_max)
     return griffinlim(magnitude, generator=generator, n_iter=n_iter,
-                      hop_length=hop_length, length=length,
+                      hop_length=hop_length, length=length, init_phase=init_phase,
                       use_pallas_glue=use_pallas_glue, device=dev)

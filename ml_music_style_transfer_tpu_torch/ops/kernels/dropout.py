@@ -45,6 +45,21 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def fold_seed(seed: int, k: int) -> int:
+    """A 64-bit seed for rank ``k`` of a mesh axis, derived from ``seed``:
+    ``seed`` itself for k = 0 (so rank 0 of any mesh draws the masks of one
+    device), else splitmix64 of ``seed + k * golden ratio``. The Philox
+    bits depend only on (seed, call_index, element), so ranks that must draw
+    different masks (data ranks; the model ranks of a column-parallel
+    output) fold their index in."""
+    if k == 0:
+        return int(seed) % 2**64
+    z = (int(seed) + int(k) * 0x9E3779B97F4A7C15) % 2**64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2**64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2**64
+    return z ^ (z >> 31)
+
+
 def keep_threshold(rate: float) -> int:
     """uint32 keep threshold: keep iff bits <= threshold (the JAX kernel's
     ``_keep_threshold``, dropout.py:52-60). Clamped below at 0, so a keep

@@ -84,6 +84,13 @@ def _check_frame_shape(nf: int, n_fft: int) -> int:
     return n_fft // R
 
 
+def supported(nf: int, n_fft: int, hop: int) -> bool:
+    """Whether the glue takes these shapes (the JAX kernel's ``supported``
+    guard, ``gl_glue.py:125``): n_fft = 8 hops of a multiple of 4 samples,
+    at least 24 frames."""
+    return n_fft == R * hop and hop % 4 == 0 and nf >= MIN_FRAMES
+
+
 def _launch_check(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError {err}")

@@ -1,0 +1,243 @@
+"""Device mesh and sharding rules: the port of the JAX package's
+``parallel/mesh.py``.
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
+one launch, with the JAX axis names:
+  - ``data``: batch sharding (DP); gradients are summed over it;
+  - ``model``: tensor parallelism (TP) over the wide channel dims: the
+    DenseConcat fusions Megatron-style (first projection column-parallel,
+    second row-parallel) and every conv's output channels;
+  - ``dcn``: on a hybrid mesh (``dcn > 1``), the slow inter-host axis. The
+    batch shards over (dcn, data) jointly, and TP stays inside a host.
+
+One rank drives one device: the card (NCCL) by default, the CPU (gloo) only
+when the caller passes ``device="cpu"``. The process group comes from the
+launch (``torchrun``'s environment, or explicit arguments); a mesh whose
+rank count the launch does not provide raises ``ValueError``.
+
+The rules (``param_shard_dim``, ``zero_extend``) are the JAX package's
+PartitionSpec rules on the port's ``state_dict`` names and layouts.
+"""
+from __future__ import annotations
+
+import datetime
+import math
+import os
+import re
+import socket
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from ..device import resolve_device
+
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distributed_init(device="cuda", init_method: str | None = None,
+                     world_size: int | None = None, rank: int | None = None,
+                     timeout: float | None = None) -> torch.device:
+    """Join the default process group (idempotent) and return this rank's
+    device: ``cuda:LOCAL_RANK`` with NCCL, or the CPU with gloo.
+
+    Arguments default to torchrun's environment (``WORLD_SIZE``, ``RANK``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``). A process started
+    without them is a launch of one rank, and joins a group of one at a
+    free localhost port. A group already joined with the other backend
+    raises. ``timeout``: seconds a collective waits for the other ranks
+    before it raises (None: PyTorch's default).
+    """
+    dev = torch.device(device)
+    if dev.type not in BACKENDS:
+        raise ValueError(f"no process-group backend for device {device!r}")
+    backend = BACKENDS[dev.type]
+    if dev.type == "cuda":
+        resolve_device("cuda")
+    env = os.environ
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"the process group runs {dist.get_backend()}, "
+                               f"device {device!r} needs {backend}")
+    else:
+        world_size = int(env.get("WORLD_SIZE", 1)) if world_size is None else world_size
+        rank = int(env.get("RANK", 0)) if rank is None else rank
+        if init_method is None:
+            if "MASTER_ADDR" in env:
+                init_method = "env://"
+            elif world_size == 1:
+                init_method = f"tcp://localhost:{free_port()}"
+            else:
+                raise ValueError(f"a launch of {world_size} ranks needs an init_method "
+                                 "(or torchrun's MASTER_ADDR/MASTER_PORT)")
+        if dev.type == "cuda":
+            torch.cuda.set_device(_local_cuda_index(rank))
+        kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
+        dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                                rank=rank, **kw)
+    if dev.type == "cuda":
+        return torch.device("cuda", _local_cuda_index(dist.get_rank()))
+    return torch.device("cpu")
+
+
+def launch_world_size() -> int:
+    """The launch's rank count: the joined group's, else torchrun's
+    ``WORLD_SIZE``, else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def _local_cuda_index(rank: int) -> int:
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(f"local rank {local} has no card of its own "
+                           f"({torch.cuda.device_count()} visible)")
+    return local
+
+
+def make_mesh(data: int = 1, model: int = 1, dcn: int = 1, device="cuda") -> DeviceMesh:
+    """A (data, model) mesh, or (dcn, data, model) when ``dcn > 1``, over
+    every rank of the launch (``distributed_init`` first). Raises
+    ``ValueError`` when the launch has another number of ranks."""
+    n = dcn * data * model
+    world = launch_world_size()
+    if n != world:
+        raise ValueError(f"mesh {f'{dcn}x' if dcn > 1 else ''}{data}x{model} needs {n} "
+                         f"ranks, the launch has {world}")
+    distributed_init(device)
+    if dcn > 1:
+        mesh = init_device_mesh(torch.device(device).type, (dcn, data, model),
+                                mesh_dim_names=("dcn", "data", "model"))
+        # the batch axes (dcn, data) jointly: one group per model coordinate,
+        # created by every rank in the same order
+        groups = [dist.new_group(mesh.mesh[:, :, m].flatten().tolist())
+                  for m in range(model)]
+        mesh._mmst_batch_group = groups[mesh.get_local_rank("model")]
+        return mesh
+    return init_device_mesh(torch.device(device).type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_axis_mesh(n: int | None = None, axis_name: str = "time", device="cuda") -> DeviceMesh:
+    """A one-axis mesh over every rank of the launch (the JAX package's
+    ``Mesh(devices, ("time",))``); ``n`` defaults to the launch's size and
+    must equal it."""
+    world = launch_world_size()
+    n = world if n is None else n
+    if n != world:
+        raise ValueError(f"a {n}-rank '{axis_name}' axis, the launch has {world} ranks")
+    distributed_init(device)
+    return init_device_mesh(torch.device(device).type, (n,), mesh_dim_names=(axis_name,))
+
+
+def mesh_shape(mesh: DeviceMesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def axis_size(mesh: DeviceMesh | None, name: str) -> int:
+    return 1 if mesh is None else mesh_shape(mesh).get(name, 1)
+
+
+def axis_group(mesh: DeviceMesh | None, name: str):
+    """The process group of axis ``name``, or None (no mesh, or no such axis)."""
+    if mesh is None or name not in mesh.mesh_dim_names:
+        return None
+    return mesh.get_group(name)
+
+
+def axis_rank(mesh: DeviceMesh | None, name: str) -> int:
+    if mesh is None or name not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(name)
+
+
+def batch_axes(mesh: DeviceMesh | None) -> tuple[str, ...]:
+    """The batch-sharding axes: ``("dcn", "data")`` on a hybrid mesh, else
+    ``("data",)`` (the JAX package's ``batch_pspec``)."""
+    if mesh is not None and "dcn" in mesh.mesh_dim_names:
+        return ("dcn", "data")
+    return ("data",)
+
+
+def batch_group(mesh: DeviceMesh | None):
+    if mesh is not None and "dcn" in mesh.mesh_dim_names:
+        return mesh._mmst_batch_group
+    return axis_group(mesh, "data")
+
+
+def batch_size(mesh: DeviceMesh | None) -> int:
+    return math.prod(axis_size(mesh, a) for a in batch_axes(mesh))
+
+
+def batch_rank(mesh: DeviceMesh | None) -> int:
+    """This rank's index along the batch axes (dcn-major, as JAX's
+    ``P(("dcn", "data"))`` lays the batch out)."""
+    r = 0
+    for a in batch_axes(mesh):
+        r = r * axis_size(mesh, a) + axis_rank(mesh, a)
+    return r
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def param_shard_dim(name: str, shape, model_size: int) -> int | None:
+    """The dim of the parameter ``name`` (a PerformanceNet ``state_dict``
+    key, torch layout) that TP shards over the model axis, or None
+    (replicated): the JAX package's ``param_pspec`` (``mesh.py:97-118``).
+
+      - DenseConcat fc1 (``fc1.weight`` (hidden, in), flax ``Dense_0``):
+        column-parallel, dim 0; its bias too;
+      - DenseConcat fc2 (``fc2.weight`` (out, hidden), flax ``Dense_1``):
+        row-parallel, dim 1; its bias replicated;
+      - conv and transposed-conv weights: the out channels (Conv1d (out,
+        in, k) dim 0, ConvTranspose1d (in, out, k) dim 1; flax kernels
+        (k, in, out) dim 2); their biases replicated;
+      - anything else, and any dim the axis does not divide: replicated.
+    """
+    if model_size <= 1:
+        return None
+    shape = tuple(shape)
+    if re.search(r"\.fc1\.(weight|bias)$", name):
+        return 0 if shape[0] % model_size == 0 else None
+    if re.search(r"\.fc2\.weight$", name):
+        return 1 if shape[1] % model_size == 0 else None
+    if name.endswith(".weight") and len(shape) == 3:
+        out_dim = 1 if _is_conv_transpose(name) else 0
+        return out_dim if shape[out_dim] % model_size == 0 else None
+    return None
+
+
+def _is_conv_transpose(name: str) -> bool:
+    return name == "lastconv.weight" or name.endswith(".upconv.weight")
+
+
+def zero_extend(shape, n: int, taken: int | None = None) -> int | None:
+    """ZeRO-1's dim for a state tensor of ``shape`` over ``n`` batch ranks:
+    the largest dim other than ``taken`` (the one TP already shards) that
+    ``n`` divides, or None (the tensor stays whole on every rank). The
+    JAX package's ``zero_extend_spec`` (``mesh.py:167-190``)."""
+    if n <= 1:
+        return None
+    best, best_size = None, 0
+    for i, d in enumerate(shape):
+        if i != taken and d % n == 0 and d > best_size:
+            best, best_size = i, d
+    return best
+
+
+def per_rank_bytes(tensors) -> int:
+    """Bytes of ``tensors`` held on this rank."""
+    return sum(t.numel() * t.element_size() for t in tensors)

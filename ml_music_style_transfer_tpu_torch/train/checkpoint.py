@@ -10,8 +10,9 @@ names) and the JAX package's resume path.
 Two file formats:
   - ``checkpoint-{epoch}.pt`` (``torch.save``, the port's default) holds the
     JAX state's keys with the port's values: ``{"params": model
-    state_dict (reference key names), "opt_state": the optimizer's
-    state_dict, "epoch", "scheduler"}``, plus ``"ema_params"`` where the
+    state_dict (reference key names), "opt_state": ``optim.export_state``
+    (the optimizer's state keyed by parameter name), "epoch",
+    "scheduler"}``, plus ``"ema_params"`` where the
     run kept an EMA;
   - ``checkpoint-{epoch}.msgpack`` is the JAX package's flax msgpack,
     read and written by ``train/flax_msgpack.py`` (no flax, no msgpack):

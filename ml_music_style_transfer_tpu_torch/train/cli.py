@@ -7,7 +7,8 @@ flags, plus ``--device`` (default ``cuda``; with no card it fails).
         [--width-mult F] [--spectral-loss W] [--stream-bf16] [--device-resident] \
         [--adam-mu-dtype bfloat16] [--adam-nu-dtype bfloat16] [--grads-dtype bfloat16] \
         [--grad-clip-norm X] [--warmup-steps N] [--ema-decay D] [--grad-accum K] \
-        [--ckpt-format torch|msgpack] [--device D]
+        [--ckpt-format torch|msgpack] [--device D] \
+        [--mesh-data N] [--mesh-model M] [--zero-opt] [--store-sharding replicated|data]
 
 Reading the HDF5 dataset needs ``h5py``. ``--device-resident`` keeps the
 train split on the card (a file preprocessed with ``--store-audio``) and
@@ -17,11 +18,20 @@ assembles each batch there. The optimizer options are the JAX package's
 ``--debug-nans`` trains under ``utils/profiling.nan_debugging``: the first
 operator that outputs a NaN raises ``FloatingPointError`` naming it (the
 JAX package's ``jax_debug_nans``). Every CUDA kernel is built before the
-first step (``enable_persistent_compile_cache``). The flags of what the
-port does not run yet are accepted and refused with
-``NotImplementedError`` naming the ROADMAP item that brings them: a mesh > 1,
---store-sharding data and --zero-opt (item 9, multi-device) and
---ckpt-format orbax (item 7a). Reference CLI: model/train.py:211-220.
+first step (``enable_persistent_compile_cache``).
+
+A mesh trains over several cards, one rank per card under torchrun; the
+mesh's rank count (data x model) must equal the launch's:
+
+    torchrun --nproc-per-node 4 -m ml_music_style_transfer_tpu_torch.train.cli \
+        -data-dir PATH -exp-name NAME --mesh-data 2 --mesh-model 2 --zero-opt
+
+``--mesh-data`` shards each batch (DP), ``--mesh-model`` the wide channel
+dims (TP), ``--zero-opt`` the optimizer state over the data axis (ZeRO-1),
+and ``--store-sharding data`` splits a ``--device-resident`` store's rows
+over the data axis. ``--device cpu`` runs the ranks on the CPU (gloo).
+``--ckpt-format orbax`` is refused with ``NotImplementedError`` naming
+ROADMAP item 7a. Reference CLI: model/train.py:211-220.
 """
 from __future__ import annotations
 
@@ -73,10 +83,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--ema-decay", type=float, default=None)
     p.add_argument("--store-sharding", choices=("replicated", "data"), default="replicated",
-                   help="device-resident store placement on a mesh ('data' waits for "
-                        "multi-device)")
+                   help="device-resident store placement on a mesh: whole on every rank, "
+                        "or its rows split over the data axis")
     p.add_argument("--grad-accum", type=int, default=1)
-    p.add_argument("--zero-opt", action="store_true")
+    p.add_argument("--zero-opt", action="store_true",
+                   help="shard the optimizer state over the data axis (ZeRO-1)")
     p.add_argument("--ckpt-format", choices=("torch", "msgpack", "orbax"), default="torch",
                    help="'torch': checkpoint-{epoch}.pt via torch.save (the port's "
                         "format); 'msgpack': the JAX package's flax msgpack; 'orbax' "

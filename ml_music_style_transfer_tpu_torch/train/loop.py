@@ -34,9 +34,28 @@ Reference model/train.py:125-208, on one card:
 Unlike the JAX Trainer, which threads (params, opt_state) through pure
 jitted steps, this one holds the model and optimizer and updates them in
 place. ``init_state`` (or ``fit``) builds both; the other methods use them.
-Orbax checkpoints, a store on a mesh and the options that
-``unsupported_train_options`` lists (ZeRO, a mesh) raise
-``NotImplementedError``.
+Orbax checkpoints raise ``NotImplementedError``.
+
+On a mesh (``mesh=``, or ``TrainConfig.mesh_shape`` other than (1, 1),
+built over the launch's ranks by ``parallel/mesh.make_mesh``) each rank
+runs this Trainer on its share of every global batch (``shard_batch``:
+the batch axes ``data``, or ``dcn`` x ``data``):
+  - DP: the loss is the global batch's weighted mean; each rank
+    back-propagates its share of it and the gradients are summed over the
+    batch axes (an explicit all-reduce per parameter, so it composes with
+    ``grad_accum``'s microbatches);
+  - TP (``model`` axis): the model is sharded Megatron-style
+    (``PerformanceNet.shard_tensor_parallel_``);
+  - ZeRO-1 (``zero_opt``): ``optim.ZeroOptimizer`` keeps each rank's
+    slices of the optimizer state; with no mesh ``zero_opt`` changes
+    nothing (one device, as the JAX Trainer's 1-wide data axis);
+  - dropout: data rank d draws with ``dropout.fold_seed(seed, d)``, so the
+    masks differ across data ranks while rank 0 draws one device's masks;
+  - checkpoints hold whole tensors: saving gathers the TP slices and the
+    ZeRO slices of the optimizer state (every rank takes part, rank 0
+    writes), and a resume gives each rank its slices again;
+  - the device-resident store is replicated or sharded over the data axis
+    (``store_sharding``; ``DeviceDataStore.local_batch``).
 """
 from __future__ import annotations
 
@@ -49,13 +68,17 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..compat import weights
-from ..config import ModelConfig, TrainConfig, unsupported_train_options
+from ..config import ModelConfig, TrainConfig
 from ..data.dataset import ChunkDataset, process_data
 from ..data.device_store import DeviceDataStore, check_placement, gather_batch
 from ..device import resolve_device
 from ..models import PerformanceNet
+from ..ops.kernels.dropout import fold_seed
+from ..parallel import comm
+from ..parallel import mesh as pmesh
 from ..utils.logging import MetricsLogger
 from . import checkpoint as ckpt
 from . import losses, optim
@@ -98,11 +121,24 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig = ModelConfig(),
                  train_cfg: TrainConfig = TrainConfig(), exp_root: str = "./experiments",
                  stream_dtype: torch.dtype | None = None, device="cuda",
-                 use_native_loader: bool = True):
-        bad = unsupported_train_options(train_cfg)
-        if bad:
-            raise NotImplementedError("; ".join(bad))
-        self.device = resolve_device(device)
+                 use_native_loader: bool = True, mesh=None):
+        """``mesh``: a ``parallel/mesh.make_mesh`` mesh; None builds one of
+        ``train_cfg.mesh_shape`` over the launch's ranks on ``device``'s
+        kind when that is not (1, 1), else trains on one device."""
+        if mesh is None and tuple(train_cfg.mesh_shape) != (1, 1):
+            mesh = pmesh.make_mesh(*train_cfg.mesh_shape, device=device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device!r} on a {mesh.device_type} mesh")
+            self.device = pmesh.mesh_device(mesh)
+        self._batch_group = pmesh.batch_group(mesh)
+        self._model_group = pmesh.axis_group(mesh, "model")
+        self.n_batch_shards = pmesh.batch_size(mesh)
+        self.batch_rank = pmesh.batch_rank(mesh)
+        self.is_main = mesh is None or dist.get_rank() == 0
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.stream_dtype = stream_dtype
@@ -126,17 +162,24 @@ class Trainer:
         them, and an EMA starts from the weights it was built on."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.model = PerformanceNet(self.model_cfg, device=self.device, generator=gen)
-        self.optimizer = optim.build_optimizer(list(self.model.named_parameters()), self.cfg,
-                                               self.scheduler.lr, self.device)
+        if comm.group_size(self._model_group) > 1:
+            self.model.shard_tensor_parallel_(self._model_group)
+        named = list(self.model.named_parameters())
+        if self.mesh is not None and self.cfg.zero_opt:
+            self.optimizer = optim.ZeroOptimizer(named, self.cfg, self.scheduler.lr,
+                                                 self.device, self._batch_group)
+        else:
+            self.optimizer = optim.build_optimizer(named, self.cfg, self.scheduler.lr,
+                                                   self.device)
         return self.model, self.optimizer
 
     def _names(self) -> list[str]:
         return [n for n, _ in self.model.named_parameters()]
 
     def ema_state_dict(self) -> dict[str, torch.Tensor]:
-        """The EMA of the weights under the model's state_dict keys (raises
-        ``ValueError`` without ``ema_decay``)."""
-        return dict(zip(self._names(), optim.get_param_ema(self.optimizer)))
+        """The EMA of the weights under the model's state_dict keys, whole
+        (raises ``ValueError`` without ``ema_decay``)."""
+        return self._whole(dict(zip(self._names(), optim.get_param_ema(self.optimizer))))
 
     @contextlib.contextmanager
     def ema_weights(self):
@@ -152,9 +195,30 @@ class Trainer:
             for p, s in zip(params, saved):
                 p.data = s
 
+    def _tp_map(self, tensors: dict, fn) -> dict:
+        """``tensors`` keyed by parameter name, ``fn(t, dim)`` applied to the
+        tensor-parallel ones (gather or slice over the model axis)."""
+        dims = self.model.tp_dims()
+        return {k: fn(v, dims[k]) if k in dims else v for k, v in tensors.items()}
+
+    def _whole(self, tensors: dict) -> dict:
+        return self._tp_map(tensors, lambda t, d: comm.all_gather_cat(t, self._model_group, d))
+
+    def _local(self, tensors: dict) -> dict:
+        return self._tp_map(tensors, lambda t, d: comm.local_slice(t, self._model_group, d)
+                            .contiguous())
+
+    def _opt_state(self) -> dict:
+        """``optim.export_state`` with whole tensors (ZeRO and TP gathered)."""
+        state = optim.export_state(self.optimizer, self._names())
+        return {k: self._whole(v) if k in ("mu", "nu", "ema", "acc") and v is not None else v
+                for k, v in state.items()}
+
     def state_dict(self, epoch: int) -> dict:
-        """The checkpoint state, under the JAX package's keys."""
-        state = {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+        """The checkpoint state, under the JAX package's keys, with whole
+        tensors; the optimizer state is ``optim.export_state``'s, keyed by
+        parameter name. On a mesh every rank calls it (it gathers)."""
+        state = {"params": self.model.full_state_dict(), "opt_state": self._opt_state(),
                  "epoch": epoch, "scheduler": self.scheduler.state_dict()}
         if self.cfg.ema_decay is not None:
             state["ema_params"] = self.ema_state_dict()
@@ -164,10 +228,10 @@ class Trainer:
         """The checkpoint state in the JAX layout (flax param trees, the
         optax state of the JAX ``Trainer`` with this config): what
         ``save_checkpoint(..., fmt="msgpack")`` writes and the JAX
-        package's ``restore_checkpoint`` reads."""
-        state = {"params": weights.to_jax_params(self.model.state_dict()),
-                 "opt_state": weights.to_jax_opt_state(
-                     optim.export_state(self.optimizer, self._names()), self.cfg),
+        package's ``restore_checkpoint`` reads. On a mesh every rank calls
+        it."""
+        state = {"params": weights.to_jax_params(self.model.full_state_dict()),
+                 "opt_state": weights.to_jax_opt_state(self._opt_state(), self.cfg),
                  "epoch": epoch, "scheduler": self.scheduler.state_dict()}
         if self.cfg.ema_decay is not None:
             state["ema_params"] = weights.to_jax_params(self.ema_state_dict())
@@ -175,15 +239,20 @@ class Trainer:
 
     def load_state(self, state: dict) -> None:
         """Load a ``state_dict`` (from a .pt) or a JAX-layout state (from a
-        msgpack the JAX package or ``jax_state_dict`` wrote)."""
+        msgpack the JAX package or ``jax_state_dict`` wrote). On a mesh
+        each rank keeps its slices of the whole tensors."""
         if "params" in state["params"]:  # a flax tree: {"params": {...}}
             self.model.load_state_dict(weights.from_jax_params(state["params"]))
-            optim.import_state(self.optimizer, weights.from_jax_opt_state(state["opt_state"]),
-                               self._names())
+            self._import_opt(weights.from_jax_opt_state(state["opt_state"]))
         else:
             self.model.load_state_dict(state["params"])
-            self.optimizer.load_state_dict(state["opt_state"])
+            self._import_opt(state["opt_state"])
         self.scheduler.load_state_dict(state["scheduler"])
+
+    def _import_opt(self, opt_state: dict) -> None:
+        opt_state = {k: self._local(v) if k in ("mu", "nu", "ema", "acc") and v is not None
+                     else v for k, v in opt_state.items()}
+        optim.import_state(self.optimizer, opt_state, self._names())
 
     def set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -192,6 +261,30 @@ class Trainer:
     def next_dropout_seed(self) -> int:
         lo, hi = torch.randint(0, 2**32, (2,), generator=self.dropout_gen).tolist()
         return lo | (hi << 32)
+
+    # ---- the batch axes -------------------------------------------------
+    def shard_batch(self, batch):
+        """This rank's share of a global batch (a dict of arrays or tensors,
+        or one of them): rows [r * B/n, (r + 1) * B/n) for batch rank r of
+        n. The batch itself with no mesh."""
+        if isinstance(batch, dict):
+            return {k: self.shard_batch(v) for k, v in batch.items()}
+        n = self.n_batch_shards
+        if n == 1:
+            return batch
+        if batch.shape[0] % n:
+            raise ValueError(f"a batch of {batch.shape[0]} does not split over "
+                             f"{n} batch ranks")
+        size = batch.shape[0] // n
+        return batch[self.batch_rank * size:(self.batch_rank + 1) * size]
+
+    def _batch_weights(self, weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(this rank's weight sum, the global batch's), each at least 1:
+        a rank's weighted-mean loss times their ratio is its share of the
+        global weighted mean."""
+        w = weight.sum().float()
+        total = comm.all_reduce_(w.clone(), self._batch_group)
+        return torch.clamp(w, min=1.0), torch.clamp(total, min=1.0)
 
     # ---- steps --------------------------------------------------------
     def loss(self, batch: dict, dropout_seed: int) -> torch.Tensor:
@@ -204,30 +297,47 @@ class Trainer:
         return loss
 
     def train_step(self, batch: dict, dropout_seed: int) -> torch.Tensor:
-        """One optimizer call on ``batch`` (device tensors): an update, or
-        with ``grad_accum = k`` one of k microbatches, whose k-th applies
-        the mean. Returns the loss as a device scalar."""
+        """One optimizer call on ``batch`` (device tensors; on a mesh this
+        rank's share, ``shard_batch``): an update, or with ``grad_accum =
+        k`` one of k microbatches, whose k-th applies the mean. Returns the
+        (global) loss as a device scalar."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(batch, dropout_seed)
+        w, total = self._batch_weights(batch["weight"])
+        loss = self.loss(batch, fold_seed(dropout_seed, self.batch_rank)) * (w / total)
         loss.backward()
+        for p in self.model.parameters():
+            if p.grad is not None:
+                comm.all_reduce_(p.grad, self._batch_group)
         self.optimizer.step()
-        return loss.detach()
+        return comm.all_reduce_(loss.detach(), self._batch_group)
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:
+        """MSE of the (global) batch, weight-masked; on a mesh ``batch`` is
+        this rank's share."""
         pred = self.model(batch["midi"], batch["cond"], batch["onoff"], deterministic=True)
-        return losses.mse_loss(pred, batch["target"], batch["weight"])
+        loss = losses.mse_loss(pred, batch["target"], batch["weight"])
+        w, total = self._batch_weights(batch["weight"])
+        return comm.all_reduce_(loss * (w / total), self._batch_group)
+
+    def _weight_sum(self, weight: torch.Tensor) -> torch.Tensor:
+        return comm.all_reduce_(weight.sum().float(), self._batch_group)
 
     def train_step_resident(self, audio, roll, onoff, idx, cond_idx, style,
                             dropout_seed: int) -> torch.Tensor:
         """``train_step`` on a batch gathered and STFT'd on the device from
-        a ``DeviceDataStore``'s tensors at the index vectors."""
+        a ``DeviceDataStore``'s tensors at the (global) index vectors; on a
+        mesh the tensors are a replicated store's and each rank gathers its
+        share."""
+        idx, cond_idx, style = (self.shard_batch(v) for v in (idx, cond_idx, style))
         return self.train_step(gather_batch(audio, roll, onoff, idx, cond_idx, style),
                                dropout_seed)
 
     @torch.no_grad()
     def eval_step_resident(self, audio, roll, onoff, idx, cond_idx, style,
                            weight=None) -> torch.Tensor:
+        idx, cond_idx, style = (self.shard_batch(v) for v in (idx, cond_idx, style))
+        weight = None if weight is None else self.shard_batch(weight)
         return self.eval_step(gather_batch(audio, roll, onoff, idx, cond_idx, style,
                                            weight=weight))
 
@@ -237,13 +347,14 @@ class Trainer:
         assembler (its own draw order) or from Python assembly."""
         bs = self.cfg.batch_size
         if not self.use_native_loader:
-            yield from device_prefetch(dataset.epoch_batches(bs, shuffle=True, drop_last=True),
-                                       self.device, stream_dtype=self.stream_dtype)
+            yield from device_prefetch(
+                map(self.shard_batch, dataset.epoch_batches(bs, shuffle=True, drop_last=True)),
+                self.device, stream_dtype=self.stream_dtype)
             return
         on_card = self.device.type == "cuda"
         asm = dataset.native_assembler(bs, pin_memory=on_card)
         for batch in asm.epoch_batches(shuffle=True):
-            dev = stage_batch(batch, self.device, self.stream_dtype)
+            dev = stage_batch(self.shard_batch(batch), self.device, self.stream_dtype)
             if on_card:
                 copied = torch.cuda.Event()
                 copied.record()
@@ -288,9 +399,8 @@ class Trainer:
         losses_dev = []
         t0 = time.time()
         for idx, cond_idx, style in store.draw_epoch_indices(self.cfg.batch_size):
-            losses_dev.append(self.train_step_resident(
-                store.audio, store.pianoroll, store.onoff, idx, cond_idx, style,
-                self.next_dropout_seed()))
+            batch = store.local_batch(idx, cond_idx, style)
+            losses_dev.append(self.train_step(batch, self.next_dropout_seed()))
         return self._epoch_report(epoch, losses_dev, t0, exp, ", device-resident")
 
     def evaluate(self, dataset: ChunkDataset, exp=None) -> float:
@@ -298,10 +408,11 @@ class Trainer:
         train.py:152-170); the last batch is padded and masked."""
         losses_dev, weights = [], []
         for batch in device_prefetch(
-                dataset.epoch_batches(self.cfg.batch_size, shuffle=False, drop_last=False),
+                map(self.shard_batch,
+                    dataset.epoch_batches(self.cfg.batch_size, shuffle=False, drop_last=False)),
                 self.device, stream_dtype=self.stream_dtype):
             losses_dev.append(self.eval_step(batch))
-            weights.append(batch["weight"].sum())
+            weights.append(self._weight_sum(batch["weight"]))
         if not losses_dev:
             raise ValueError("the evaluation split is empty")
         batch_losses = torch.stack(losses_dev).tolist()
@@ -317,9 +428,9 @@ class Trainer:
         test(), train.py:152-170), with the store's deterministic plan."""
         losses_dev, weights = [], []
         for idx, cond_idx, style, weight in store.eval_epoch_indices(self.cfg.batch_size):
-            losses_dev.append(self.eval_step_resident(
-                store.audio, store.pianoroll, store.onoff, idx, cond_idx, style, weight))
-            weights.append(weight.sum())
+            batch = store.local_batch(idx, cond_idx, style, weight)
+            losses_dev.append(self.eval_step(batch))
+            weights.append(self._weight_sum(batch["weight"]))
         if not losses_dev:
             raise ValueError("the evaluation split is empty")
         batch_losses = torch.stack(losses_dev).tolist()
@@ -343,24 +454,32 @@ class Trainer:
         audio as ``device_audio_dtype`` (bfloat16 by default, whose targets
         differ from the host path's; ``torch.float32`` for parity). A test
         split without ``audio_*`` keys is evaluated from host batches, with
-        a notice. ``store_sharding="data"`` raises (one card).
+        a notice. On a mesh the store is whole on every rank
+        (``store_sharding="replicated"``) or its rows are split over the
+        data axis (``"data"``); with no mesh both are one device's store.
+        Every rank of a mesh reads the data; rank 0 writes the experiment
+        directory, its logs and the checkpoints.
 
         ``checkpoint_format``: "torch" (``checkpoint-{epoch}.pt``) or
         "msgpack" (the JAX package's format, ``jax_state_dict``); "orbax"
         raises. With ``ema_decay`` set the EMA weights are evaluated,
         ranked and written as ``ema_params``.
         """
-        check_placement(None, store_sharding)
+        check_placement(store_sharding)
         if checkpoint_format == "orbax":
             raise NotImplementedError(f"checkpoint_format='orbax' waits for {ckpt.ORBAX_ITEM}")
         if checkpoint_format not in ckpt.FORMATS:
             raise ValueError(f"unknown checkpoint_format {checkpoint_format!r}")
-        os.makedirs(self.exp_root, exist_ok=True)
-        if not resume:
-            os.makedirs(self.exp_dir)  # same error-on-exists semantics (train.py:183)
+        if self.is_main:
+            os.makedirs(self.exp_root, exist_ok=True)
+            if not resume:
+                os.makedirs(self.exp_dir)  # same error-on-exists semantics (train.py:183)
+        if self.mesh is not None:
+            dist.barrier()
         store = test_store = train_ds = test_ds = None
         if device_resident:
-            store_kw = {"store_sharding": store_sharding, "device": self.device}
+            store_kw = {"store_sharding": store_sharding, "device": self.device,
+                        "mesh": self.mesh}
             if device_audio_dtype is not None:
                 store_kw["audio_dtype"] = device_audio_dtype
             store = DeviceDataStore(data_dir + "_train.hdf5", n_read=self.cfg.n_train_read,
@@ -407,7 +526,8 @@ class Trainer:
                 print(f"resumed from {path} at epoch {start_epoch}")
 
         self.dropout_gen = torch.Generator().manual_seed(self.cfg.seed)
-        metrics = MetricsLogger(os.path.join(self.exp_dir, "metrics.jsonl"))
+        metrics = MetricsLogger(os.path.join(self.exp_dir, "metrics.jsonl")
+                                if self.is_main else None)
         print("start training")
         for epoch in range(start_epoch, self.cfg.epochs):
             t_epoch = time.time()
@@ -439,10 +559,14 @@ class Trainer:
                     print("saving model")
                     state = (self.jax_state_dict(epoch + 1) if checkpoint_format == "msgpack"
                              else self.state_dict(epoch + 1))
-                    ckpt.save_checkpoint(self.exp_dir, epoch + 1, state, checkpoint_format)
+                    if self.is_main:
+                        ckpt.save_checkpoint(self.exp_dir, epoch + 1, state, checkpoint_format)
                     exp.best_loss = test_loss
                     exp.best_epoch = epoch + 1
-                    exp.save(self.exp_dir)
+                    if self.is_main:
+                        exp.save(self.exp_dir)
                     metrics.log("checkpoint", epoch=epoch + 1, best_loss=test_loss)
         metrics.close()
+        if self.mesh is not None:
+            dist.barrier()  # the checkpoints are written before any rank returns
         return self.model, exp

@@ -188,11 +188,15 @@ class ParamEma:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float, norm_fn=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: unchanged where the global
     L2 norm is below ``max_norm``, else ``(g / norm) * max_norm``. The
-    choice is made on the device (no host sync). Returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    choice is made on the device (no host sync). ``norm_fn(grads)`` gives
+    the norm where ``grads`` are shards (ZeRO). Returns the norm."""
+    if norm_fn is not None:
+        norm = norm_fn(grads)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -208,8 +212,10 @@ class TrainOptimizer:
     is the injected learning rate: ``Trainer.set_lr`` and the plateau
     scheduler write it."""
 
-    def __init__(self, named_params, cfg: TrainConfig, lr: float, fused: bool = False):
+    def __init__(self, named_params, cfg: TrainConfig, lr: float, fused: bool = False,
+                 norm_fn=None):
         named = list(named_params)
+        self.norm_fn = norm_fn
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.param_groups = [{"lr": lr}]
@@ -253,7 +259,7 @@ class TrainOptimizer:
             for p, a in zip(self.params, self.acc):
                 p.grad = a
         if self.clip is not None:
-            clip_by_global_norm_(grads, self.clip)
+            clip_by_global_norm_(grads, self.clip, self.norm_fn)
         warm = None
         if self.warmup_steps > 0:
             warm = float(min(np.float32(1), np.float32(self.warmup_count + 1)
@@ -284,21 +290,141 @@ class TrainOptimizer:
         import_state(self, state, self.names)
 
 
-def build_optimizer(named_params, cfg: TrainConfig, lr: float, device: torch.device):
+def build_optimizer(named_params, cfg: TrainConfig, lr: float, device: torch.device,
+                    norm_fn=None):
     """``torch.optim.Adam`` (lr, betas (0.9, 0.999), eps 1e-8, optax's
     defaults; fused on the card) where ``cfg`` sets no option, else a
     ``TrainOptimizer``."""
     fused = device.type == "cuda"
     if has_options(cfg):
-        return TrainOptimizer(named_params, cfg, lr, fused=fused)
+        return TrainOptimizer(named_params, cfg, lr, fused=fused, norm_fn=norm_fn)
     return torch.optim.Adam([p for _, p in named_params], lr=lr, betas=(B1, B2), eps=EPS,
                             fused=True if fused else None)
+
+
+class ZeroOptimizer:
+    """ZeRO-1 over the batch axes' process group (the JAX ``Trainer``'s
+    ``zero_opt``, ``train/loop.py:231-244``): the optimizer state of each
+    parameter is kept for this rank's slice of it only, the slice along
+    ``parallel/mesh.zero_extend`` (its largest dim the group size divides;
+    a parameter with none is kept whole on every rank). ``step`` takes the
+    slices of the current parameters and of their (already summed)
+    gradients, updates them with the same optimizer and options as one
+    device, then gathers the whole updated parameters on every rank. Adam
+    is elementwise, so a step equals the unsharded step bit for bit: the
+    gradient dtype's round trip and the clipping norm are taken on the
+    whole gradients, as one device takes them (under ``grad_accum`` the
+    norm of the mean is summed from the slices of the accumulator, which
+    is sliced like the moments and the EMA).
+
+    ``state_dict`` gathers the whole state (a collective: every rank calls
+    it), and ``load_state_dict`` takes a whole state and keeps this rank's
+    slices."""
+
+    def __init__(self, named_params, cfg: TrainConfig, lr: float, device: torch.device,
+                 group):
+        from ..parallel import comm, mesh as pmesh
+
+        import dataclasses
+
+        named = list(named_params)
+        self.group = group
+        self.n, self.rank = comm.group_size(group), comm.group_rank(group)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.dims = [pmesh.zero_extend(p.shape, self.n) for p in self.params]
+        self.shards = [torch.nn.Parameter(self._slice(p.detach(), d).clone())
+                       for p, d in zip(self.params, self.dims)]
+        self.grads_dtype = storage_dtype(cfg.grads_dtype)
+        self._whole_grads = None
+        self.inner = build_optimizer(list(zip(self.names, self.shards)),
+                                     dataclasses.replace(cfg, grads_dtype=None), lr, device,
+                                     norm_fn=self.norm)
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def _slice(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+        if dim is None:
+            return t
+        size = t.shape[dim] // self.n
+        return t.narrow(dim, self.rank * size, size)
+
+    def _gather(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+        from ..parallel import comm
+
+        return t if dim is None else comm.all_gather_cat(t, self.group, dim)
+
+    @torch.no_grad()
+    def norm(self, grads: list) -> torch.Tensor:
+        """The global L2 norm of gradients given as this rank's slices:
+        one device's norm of the whole gradients where ``step`` has them,
+        else the sliced ones' squares summed over the group and the whole
+        ones' added once."""
+        from ..parallel import comm
+
+        if self._whole_grads is not None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self._whole_grads)))
+        sq = [torch.zeros((), dtype=torch.float64, device=grads[0].device) for _ in range(2)]
+        for g, d in zip(grads, self.dims):
+            sq[d is None] += g.double().square().sum()
+        return torch.sqrt(comm.all_reduce_(sq[0], self.group) + sq[1]).to(grads[0].dtype)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params + self.shards:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        grads = [p.grad for p in self.params]
+        if self.grads_dtype is not None:
+            for g in grads:
+                g.copy_(g.to(self.grads_dtype))
+        accumulating = isinstance(self.inner, TrainOptimizer) and self.inner.acc is not None
+        self._whole_grads = None if accumulating else grads
+        for p, s, d in zip(self.params, self.shards, self.dims):
+            s.copy_(self._slice(p, d))  # the parameters may have been loaded since
+            s.grad = self._slice(p.grad, d).contiguous()
+        applied = self.inner.step()
+        self._whole_grads = None
+        if applied is False:
+            return False
+        for p, s, d in zip(self.params, self.shards, self.dims):
+            p.copy_(self._gather(s, d))
+        return True
+
+    def gathered(self, tensors: list) -> list:
+        """Whole tensors from per-parameter slices (a collective)."""
+        return [self._gather(t, d) for t, d in zip(tensors, self.dims)]
+
+    def sliced(self, tensors: list) -> list:
+        """This rank's slices of whole per-parameter tensors."""
+        return [self._slice(t, d).contiguous() for t, d in zip(tensors, self.dims)]
+
+    def state_dict(self) -> dict:
+        return export_state(self, self.names)
+
+    def load_state_dict(self, state: dict) -> None:
+        import_state(self, state, self.names)
+
+
+def _zero_map(state: dict, names: list[str], fn) -> dict:
+    """``state`` (``export_state``'s layout) with ``fn`` applied to each of
+    its per-parameter lists (mu, nu, ema, acc)."""
+    out = dict(state)
+    for key in ("mu", "nu", "ema", "acc"):
+        if state.get(key) is not None:
+            out[key] = dict(zip(names, fn([state[key][n] for n in names])))
+    return out
 
 
 def export_state(opt, names: list[str]) -> dict:
     """The optimizer's state in optax's terms, tensors keyed by parameter
     name: ``lr``, Adam's ``count``, ``mu``, ``nu``; ``warmup_count``,
     ``ema``, ``acc`` and ``mini_step`` (None where the option is off)."""
+    if isinstance(opt, ZeroOptimizer):
+        return _zero_map(export_state(opt.inner, names), names, opt.gathered)
     if isinstance(opt, TrainOptimizer):
         count, mu, nu = opt.moments()
         return {"lr": opt.param_groups[0]["lr"], "count": count,
@@ -319,6 +445,9 @@ def import_state(opt, state: dict, names: list[str]) -> None:
     msgpack) into ``opt``. The options present must be the optimizer's:
     a mismatch raises ``ValueError``, as flax's restore raises on a tree of
     another layout."""
+    if isinstance(opt, ZeroOptimizer):
+        import_state(opt.inner, _zero_map(state, names, opt.sliced), names)
+        return
     is_chain = isinstance(opt, TrainOptimizer)
     have = {"warmup_count": is_chain and opt.warmup_steps > 0,
             "ema": is_chain and opt.ema is not None,
@@ -349,7 +478,10 @@ def import_state(opt, state: dict, names: list[str]) -> None:
 
 
 def get_param_ema(opt) -> list[torch.Tensor]:
-    """The EMA of the parameters, in their order (JAX ``get_param_ema``)."""
+    """The EMA of the parameters, in their order (JAX ``get_param_ema``);
+    whole tensors under ZeRO (a collective)."""
+    if isinstance(opt, ZeroOptimizer):
+        return opt.gathered(get_param_ema(opt.inner))
     if not isinstance(opt, TrainOptimizer) or opt.ema is None:
         raise ValueError("the optimizer keeps no parameter EMA: was ema_decay set?")
     return opt.ema.ema

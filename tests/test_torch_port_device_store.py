@@ -129,10 +129,13 @@ class TestStore:
         path = data[0] + "_train.hdf5"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeviceDataStore(path)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            DeviceDataStore(path, store_sharding="data", device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            DeviceDataStore(path, mesh=object(), device="cpu")
+        # item 9 has landed: with no mesh a data-sharded store is one
+        # device's store (the JAX store on a 1-wide data axis); an unknown
+        # placement raises
+        one = DeviceDataStore(path, store_sharding="data", device="cpu")
+        assert one.store_sharding == "replicated" and one.pianoroll.shape[0] == one.n_data
+        with pytest.raises(ValueError, match="unknown store_sharding"):
+            DeviceDataStore(path, store_sharding="rows", device="cpu")
         with pytest.raises(ValueError, match="store-audio"):
             DeviceDataStore(data[1] + "_test.hdf5", device="cpu")
         raw = load_dataset(path, include_specs=False)
@@ -220,8 +223,9 @@ class TestResidentTraining:
         train_cli.main(["-data-dir", data[0], "-exp-name", "c", "--batch-size", "2",
                         "--width-mult", str(1 / 16), "--device-resident", "--device", "cpu"])
         assert os.path.exists(os.path.join("experiments", "c", "checkpoint-1.pt"))
-        with pytest.raises(NotImplementedError, match="item 9"):
+        # a mesh of 2 data ranks in a launch of one raises (item 9 landed)
+        with pytest.raises(ValueError, match="needs 2 ranks, the launch has 1"):
             train_cli.main(["-data-dir", data[0], "-exp-name", "d", "--device-resident",
-                            "--store-sharding", "data", "--device", "cpu"])
+                            "--store-sharding", "data", "--mesh-data", "2", "--device", "cpu"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(["-data-dir", data[0], "-exp-name", "e", "--device-resident"])

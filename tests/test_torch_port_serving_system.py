@@ -167,21 +167,42 @@ class TestWholeClip:
 
 class TestMultiDeviceArguments:
     def test_each_raises_naming_item_9(self, clips, state):
+        """Item 9 has landed: each multi-device argument runs. On a mesh of
+        this process's one rank (gloo) every path gives one device's
+        result; a mesh the launch has no ranks for raises."""
+        import torch.distributed as dist
+        from ml_music_style_transfer_tpu_torch.parallel import mesh as pmesh
+
         midi, wav = clips["short"]
         synth = _synth(midi, wav, state)
-        mesh = object()
-        with pytest.raises(NotImplementedError, match="item 9"):
-            synth.synthesize_whole_clip(n_iter=1, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            synth.synthesize_whole_clip(n_iter=1, shard_gl=True)
-        roll = np.zeros((100, 128), np.float32)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            synth.predict_spectrogram_whole_clip(roll, roll, np.zeros((100, 1025)), 100, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            bulk.bulk_griffinlim(np.zeros((1, 1025, 30), np.float32), [0], mesh=mesh,
-                                 n_iter=1, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            bulk.batch_synthesize_waveforms([synth], n_iter=1, mesh=mesh)
+        with pytest.raises(ValueError, match="needs 2 ranks, the launch has 1"):
+            pmesh.make_mesh(2, 1, device="cpu")
+        assert not dist.is_initialized()
+        want = synth.synthesize_whole_clip(n_iter=1)
+        np.testing.assert_array_equal(synth.synthesize_whole_clip(n_iter=1, shard_gl=True), want)
+        mesh = pmesh.make_mesh(1, 1, device="cpu")
+        try:
+            got = synth.synthesize_whole_clip(n_iter=1, mesh=mesh, axis_name="data",
+                                              shard_gl=True)
+            np.testing.assert_array_equal(got, synth.synthesize_whole_clip(
+                n_iter=1, mesh=mesh, axis_name="data", shard_gl=False))
+            assert got.shape == want.shape and np.all(np.isfinite(got))
+            roll = np.zeros((100, 128), np.float32)
+            cond = np.random.default_rng(0).random((100, 1025)).astype(np.float32)
+            np.testing.assert_allclose(
+                synth.predict_spectrogram_whole_clip(roll, roll, cond, 100, mesh=mesh,
+                                                     axis_name="data"),
+                synth.predict_spectrogram_whole_clip(roll, roll, cond, 100),
+                atol=2e-3, rtol=1e-3)
+            specs = np.random.default_rng(1).random((2, 1025, 30)).astype(np.float32)
+            np.testing.assert_array_equal(
+                bulk.bulk_griffinlim(specs, [0, 1], mesh=mesh, n_iter=1).numpy(),
+                bulk.bulk_griffinlim(specs, [0, 1], n_iter=1, device="cpu").numpy())
+            wavs, errors = bulk.batch_synthesize_waveforms([synth], n_iter=1, mesh=mesh)
+            assert errors == [None]
+            np.testing.assert_array_equal(wavs[0], synth.synthesize_waveform(n_iter=1))
+        finally:
+            dist.destroy_process_group()
 
 
 class TestBatch:
@@ -444,12 +465,13 @@ class TestServeDaemon:
         out_s = io.StringIO()
         served = serve.serve_loop(lambda m, a: _synth(m, a, state), io.StringIO(
             "\n".join(json.dumps(r) for r in reqs) + "\n"), out_s)
-        ok, refused = _responses(out_s)
-        assert served == 1 and ok["ok"]
+        ok, sharded = _responses(out_s)
+        assert served == 2 and ok["ok"] and sharded["ok"]
         y, sr = audio_io.read_wav(ok["out"], sr=None)
         want = _synth(midi, wav, state).synthesize_whole_clip(n_iter=2)
         assert sr == 44100 and len(y) == len(want)
-        assert not refused["ok"] and "item 9" in refused["error"]
+        # item 9 landed: with one device "shard_gl" changes nothing
+        np.testing.assert_array_equal(audio_io.read_wav(sharded["out"], sr=None)[0], y)
 
     def test_main_serves_stdin_on_the_cpu(self, tmp_path, state, clips, monkeypatch, capsys):
         exp = tmp_path / "experiments" / "e"
@@ -482,14 +504,16 @@ class TestServeDaemon:
     @pytest.mark.parametrize("flag, item", [(["--mesh-data", "2"], "item 9"),
                                             (["--use-ema"], None)])
     def test_main_refuses_what_is_not_ported(self, flag, item, monkeypatch):
-        """--mesh-data > 1 waits for item 9. --use-ema (item 7) is ported:
-        the daemon starts with it and stops at 'quit' (serving EMA weights
-        is in test_torch_port_msgpack.py)."""
+        """--mesh-data > 1 (item 9) has landed: it serves over the launch's
+        ranks, so a launch of one rank refuses 2 (the multi-rank daemon is
+        in test_torch_port_gl_shard.py). --use-ema (item 7) is ported: the
+        daemon starts with it and stops at 'quit' (serving EMA weights is in
+        test_torch_port_msgpack.py)."""
         if item is None:
             monkeypatch.setattr(sys, "stdin", io.StringIO("quit\n"))
             assert serve.main(["-exp-name", "e", "--device", "cpu", *flag]) == 0
             return
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="needs 2 ranks, the launch has 1"):
             serve.main(["-exp-name", "e", "--device", "cpu", *flag])
 
 

@@ -233,8 +233,20 @@ class TestTrainer:
 
     @pytest.mark.parametrize("option", [dict(zero_opt=True), dict(mesh_shape=(2, 1))])
     def test_options_not_ported_raise_naming_the_roadmap(self, option):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-            Trainer(ModelConfig(**TINY_KW), TrainConfig(**option), device="cpu")
+        """ROADMAP item 9 has landed. With no mesh ``zero_opt`` changes
+        nothing (one device: the JAX Trainer's 1-wide data axis); a mesh
+        the launch has no ranks for raises (the multi-rank paths are in
+        test_torch_port_parallel.py)."""
+        from ml_music_style_transfer_tpu_torch.train import optim
+
+        if "mesh_shape" in option:
+            with pytest.raises(ValueError, match="needs 2 ranks, the launch has 1"):
+                Trainer(ModelConfig(**TINY_KW), TrainConfig(**option), device="cpu")
+            return
+        tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(**option), device="cpu")
+        tr.init_state(0)
+        assert tr.mesh is None and isinstance(tr.optimizer, torch.optim.Adam)
+        assert not isinstance(tr.optimizer, optim.ZeroOptimizer)
 
     def test_default_device_needs_a_card(self):
         if torch.cuda.is_available():
@@ -380,9 +392,11 @@ class TestFit:
     def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path, monkeypatch):
         """The device-resident path (item 6) has landed: ``fit`` and the
         four resident methods run on a file without audio as far as that
-        allows (the store names --store-audio); orbax (item 7a), the mesh
-        and ZeRO (item 9) still raise. --debug-nans (item 10) has landed:
-        the CLI trains under NaN debugging with no false positive."""
+        allows (the store names --store-audio); orbax (item 7a) still
+        raises. The mesh and ZeRO (item 9) have landed: a mesh the launch
+        has no ranks for raises ValueError, and so does an unknown store
+        placement. --debug-nans (item 10) has landed: the CLI trains under
+        NaN debugging with no false positive."""
         tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2), exp_root=str(tmp_path),
                      device="cpu")
         with pytest.raises(ValueError, match="store-audio"):
@@ -401,13 +415,15 @@ class TestFit:
         assert np.isfinite(float(tr.eval_step_resident(*args)))
         assert np.isfinite(tr.train_epoch_resident(store, 0))
         assert np.isfinite(tr.evaluate_resident(store))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tr.fit(tiny_h5, store_sharding="data")
+        with pytest.raises(ValueError, match="unknown store_sharding"):
+            tr.fit(tiny_h5, store_sharding="rows")
         with pytest.raises(NotImplementedError, match="item 7a"):
             tr.fit(tiny_h5, checkpoint_format="orbax")
-        for flags, item in ((["--mesh-data", "2"], "item 9"), (["--zero-opt"], "item 9"),
-                            (["--ckpt-format", "orbax"], "item 7a")):
-            with pytest.raises(NotImplementedError, match=item):
+        for flags, err, msg in (
+                (["--mesh-data", "2"], ValueError, "needs 2 ranks, the launch has 1"),
+                (["--mesh-model", "2", "--zero-opt"], ValueError, "needs 2 ranks"),
+                (["--ckpt-format", "orbax"], NotImplementedError, "item 7a")):
+            with pytest.raises(err, match=msg):
                 train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "r"]
                                + flags)
         monkeypatch.chdir(tmp_path)

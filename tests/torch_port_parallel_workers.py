@@ -1,0 +1,336 @@
+"""Rank functions for the port's multi-device tests, run by
+``ml_music_style_transfer_tpu_torch.parallel.launch.spawn`` on gloo ranks.
+
+Kept apart from the test modules: a spawned rank imports this module, and
+it imports torch and the port only (no JAX), so each rank starts in about
+a second. Every function takes the rank first and returns what the test
+compares (numpy arrays and floats).
+"""
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+from ml_music_style_transfer_tpu_torch.models import PerformanceNet, layers
+from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
+from ml_music_style_transfer_tpu_torch.parallel import gl_shard
+from ml_music_style_transfer_tpu_torch.parallel import mesh as pmesh
+from ml_music_style_transfer_tpu_torch.parallel import time_shard as ts
+
+# width 1/16, float32, no dropout: the train steps compare with the JAX
+# Trainer, whose dropout draws threefry bits (layers.py:56)
+TINY_KW = dict(width_mult=1 / 16, compute_dtype="float32", dropout_rate=0.0)
+TS_KW = dict(start_channels=32, start_audio_channels=65, width_mult=1 / 16,
+             compute_dtype="float32")
+
+
+def _np(t):
+    """A numpy copy (a state_dict's tensors share the live weights)."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _state_np(sd):
+    return {k: _np(v) for k, v in sd.items()}
+
+
+def _train(trainer, batch, n_steps=2):
+    from ml_music_style_transfer_tpu_torch.train.loop import stage_batch
+
+    local = stage_batch(trainer.shard_batch(batch), trainer.device)
+    return [float(trainer.train_step(local, s)) for s in range(n_steps)]
+
+
+def _moment_bytes(opt) -> int:
+    """Bytes of Adam's moments on this rank."""
+    from ml_music_style_transfer_tpu_torch.train import optim
+
+    inner = opt.inner if isinstance(opt, optim.ZeroOptimizer) else opt
+    if isinstance(inner, optim.TrainOptimizer):
+        _, mu, nu = inner.moments()
+    else:
+        _, mu, nu = optim.adam_moments(inner)
+    return pmesh.per_rank_bytes(list(mu) + list(nu))
+
+
+def mesh_training(rank, batch, runs, tmp):
+    """Each run (name, (data, model, dcn), TrainConfig kwargs): a Trainer on
+    that mesh takes two steps on the global ``batch``. Returns {name:
+    {"losses", "params" (whole, rank 0 only), "moment_bytes"}} plus the
+    checkpoint, resident-store and dropout checks of the last mesh."""
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    cfg = ModelConfig(**TINY_KW)
+    b = len(batch["weight"])
+    out = {}
+    for name, (data, model, dcn), kw in runs:
+        mesh = pmesh.make_mesh(data, model, dcn=dcn, device="cpu")
+        tr = Trainer(cfg, TrainConfig(batch_size=b, **kw), device="cpu", mesh=mesh)
+        tr.init_state(0)
+        losses = _train(tr, batch)
+        full = tr.model.full_state_dict()
+        out[name] = {"losses": losses, "moment_bytes": _moment_bytes(tr.optimizer),
+                     "params": _state_np(full) if rank == 0 else None}
+        if name == "zero_tp":
+            out["checkpoint"] = _checkpoint_roundtrip(rank, tr, cfg, b, kw, mesh, batch, tmp)
+    out["resident"] = resident_and_dropout(rank)
+    return out
+
+
+def _checkpoint_roundtrip(rank, tr, cfg, b, kw, mesh, batch, tmp):
+    """A ZeRO + TP trainer's state, gathered whole, saved (.pt and flax
+    msgpack) and loaded into fresh trainers: the whole tensors survive and
+    the next step equals the step of the trainer never saved."""
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    import copy
+
+    st = copy.deepcopy(tr.state_dict(2))  # its tensors may share the live ones
+    jst = tr.jax_state_dict(2)
+    if rank == 0:
+        ckpt.save_checkpoint(tmp, 2, st, "torch")
+        ckpt.save_checkpoint(tmp, 2, jst, "msgpack")
+    dist.barrier()
+    want = _train(tr, batch, 1)[0]
+    want_params = tr.model.full_state_dict()
+    res = {"want_loss": want}
+    for fmt in ("torch", "msgpack"):
+        t2 = Trainer(cfg, TrainConfig(batch_size=b, **kw), device="cpu", mesh=mesh)
+        t2.init_state(1)
+        t2.load_state(ckpt.restore_checkpoint(ckpt.checkpoint_path(tmp, 2, fmt)))
+        same = all(torch.equal(st["params"][k], v) for k, v in
+                   t2.model.full_state_dict().items())
+        opt = t2._opt_state()
+        same_opt = all(torch.equal(st["opt_state"][key][k], v)
+                       for key in ("mu", "nu") for k, v in opt[key].items())
+        loss = _train(t2, batch, 1)[0]
+        diff = max(float((v - want_params[k]).abs().max())
+                   for k, v in t2.model.full_state_dict().items())
+        res[fmt] = {"params_equal": same, "moments_equal": same_opt, "loss": loss,
+                    "max_param_diff": diff}
+    return res
+
+
+def resident_and_dropout(rank):
+    """On a (2, 2) mesh: a data-sharded store's local batches against a
+    replicated store's, a ZeRO step on each, and train-mode forwards whose
+    dropout masks must agree across model ranks and differ across data
+    ranks."""
+    from ml_music_style_transfer_tpu_torch.data.device_store import DeviceDataStore
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    mesh = pmesh.make_mesh(2, 2, device="cpu")
+    rng = np.random.default_rng(5)
+    n, t = 9, 220  # 9 rows over 2 data ranks: 5 each, one of them padding
+    raw = {"pianoroll": (rng.random((n, t, 128)) < 0.05).astype(np.int8),
+           "onoff": rng.choice([-1, 0, 1], (n, t, 128)).astype(np.int8),
+           "audio_a": rng.standard_normal((n, (t - 1) * 256)).astype(np.float32),
+           "audio_b": rng.standard_normal((n, (t - 1) * 256)).astype(np.float32)}
+    rep = DeviceDataStore.from_arrays(raw, audio_dtype=torch.float32, device="cpu", mesh=mesh,
+                                      seed=3)
+    shd = DeviceDataStore.from_arrays(raw, audio_dtype=torch.float32, device="cpu", mesh=mesh,
+                                      seed=3, store_sharding="data")
+    out = {"rows_held": int(shd.pianoroll.shape[0]), "batches_equal": True}
+    cfg = ModelConfig(**TINY_KW)
+    losses = {}
+    for name, store in (("replicated", rep), ("data", shd)):
+        tr = Trainer(cfg, TrainConfig(batch_size=4, zero_opt=True), device="cpu", mesh=mesh)
+        tr.init_state(0)
+        losses[name] = [float(tr.train_step(store.local_batch(*ix), 7))
+                        for ix in store.draw_epoch_indices(4)]
+    for (i1, c1, s1), (i2, c2, s2) in zip(rep.draw_epoch_indices(4),
+                                          shd.draw_epoch_indices(4)):
+        b1, b2 = rep.local_batch(i1, c1, s1), shd.local_batch(i2, c2, s2)
+        out["batches_equal"] &= all(torch.equal(b1[k], b2[k]) for k in b1)
+    out["losses"] = losses
+    # dropout: the same input on every rank, train mode
+    model = PerformanceNet(ModelConfig(width_mult=1 / 16, compute_dtype="float32"),
+                           generator=torch.Generator().manual_seed(0))
+    model.shard_tensor_parallel_(pmesh.axis_group(mesh, "model"))
+    x = np.random.default_rng(1)
+    midi = torch.from_numpy((x.random((1, 220, 128)) < 0.05).astype(np.float32))
+    spec = torch.from_numpy(x.random((1, 220, 1025)).astype(np.float32))
+    seed = dk.fold_seed(12345, pmesh.batch_rank(mesh))
+    with torch.no_grad():
+        y = model(midi, spec, midi, deterministic=False, dropout_seed=seed)
+    out["coords"] = (pmesh.axis_rank(mesh, "data"), pmesh.axis_rank(mesh, "model"))
+    out["train_out"] = _np(y)
+    return out
+
+
+# ---- time sharding -------------------------------------------------------------
+
+def block_outputs(rank, inputs):
+    """Every block on a 2-rank time axis; returns this rank's slices
+    (channel-last, as the JAX functions give them)."""
+    mesh = pmesh.make_axis_mesh(2, "data", device="cpu")
+    g = pmesh.axis_group(mesh, "data")
+    out = {}
+
+    def local(a):  # (B, T, C) numpy -> this rank's channel-first slice
+        return ts.shard_time(torch.from_numpy(a), mesh, "data").transpose(1, 2)
+
+    def cl(t):
+        return _np(t.transpose(1, 2))
+
+    x, w, b = inputs["block"]
+    conv_w = torch.from_numpy(w).permute(2, 1, 0).contiguous()
+    out["block"] = cl(ts.sharded_conv_block(local(x), conv_w, torch.from_numpy(b), g))
+    xe, we, be = inputs["edges"]
+    out["block_edges"] = cl(ts.sharded_conv_block(
+        local(xe), torch.from_numpy(we).permute(2, 1, 0).contiguous(), torch.from_numpy(be), g))
+    out["instance_norm"] = cl(ts.sharded_instance_norm(local(inputs["in"]), g))
+    xm, t_valid = inputs["masked_in"]
+    out["masked_in"] = cl(ts.masked_instance_norm(local(xm), t_valid, g))
+    for s in (1, 2, 6):
+        out[f"right{s}"] = cl(ts._shift_right(local(inputs["shift"]), s, g))
+        out[f"left{s}"] = cl(ts._shift_left(local(inputs["shift"]), s, g))
+    for k in (6, 4, 3, 2):
+        xk, t_valid = inputs[f"convT{k}"]
+        ct = layers.ConvTranspose1dTorch(12, 20, k, 2, 1, "float32")
+        with torch.no_grad():
+            ct.weight.copy_(torch.from_numpy(inputs[f"convT{k}_w"]))
+            ct.bias.copy_(torch.from_numpy(inputs[f"convT{k}_b"]))
+            y = ts._mask(ts._conv_transpose_s2(local(xk), ct, g), 2 * t_valid + k - 4, g)
+        out[f"convT{k}"] = cl(y)
+    xd, t_valid = inputs["down"]
+    dc = layers.DownConv(16, 24, True, "float32")
+    dc.load_state_dict({k: torch.from_numpy(v) for k, v in inputs["down_sd"].items()})
+    with torch.no_grad():
+        pooled, _, before, _ = ts.sharded_down_conv(dc, local(xd), t_valid, g)
+    out["down_pooled"], out["down_before"] = cl(pooled), cl(before)
+    return out
+
+
+def time_sharded(rank, block_inputs, state, inputs, t_valid, n_steps):
+    """``block_outputs``, then the time-sharded forward, loss and gradients
+    of a TS-config model holding ``state`` on a 2-rank axis and
+    ``n_steps`` fine-tune steps."""
+    out = {"blocks": block_outputs(rank, block_inputs)}
+    mesh = pmesh.make_axis_mesh(2, "time", device="cpu")
+    model = PerformanceNet(ModelConfig(**TS_KW), device="meta")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, assign=True)
+    fn, t_pad, t_out = ts.make_time_sharded_forward(model, mesh, t_valid)
+
+    def pad_local(a, t_to):
+        p = np.zeros((1, t_pad, a.shape[-1]), np.float32)
+        p[:, :t_to] = a[:, :t_to]
+        return ts.shard_time(torch.from_numpy(p), mesh)
+
+    xm, xa, xc = (pad_local(inputs[k], t_valid) for k in ("xm", "xa", "xc"))
+    with torch.no_grad():
+        fwd = _np(fn(xm, xa, xc))
+    tst = ts.make_time_sharded_train_step(model, mesh, t_valid)
+    tgt = pad_local(inputs["target"], tst.t_out)
+    loss, grads = tst.value_and_grad(xm, xa, xc, tgt)
+    steps = [float(tst.step(xm, xa, xc, tgt)) for _ in range(n_steps)]
+    out.update({"forward": fwd, "t_pad": t_pad, "t_out": t_out, "loss": float(loss),
+                "grads": {k: _np(v) for k, v in grads.items()} if rank == 0 else None,
+                "steps": steps})
+    return out
+
+
+# ---- Griffin-Lim ------------------------------------------------------------------
+
+def sharded_gl(rank, n, spec, field, kw, specs, bulk_fields, clip_dir):
+    """Sharded Griffin-Lim on an n-rank time axis from ``field``; seed
+    determinism; the ValueErrors; bulk Griffin-Lim over the data ranks
+    (from the seeds, and from ``bulk_fields``); on 2 ranks the serving
+    daemon over the mesh."""
+    mesh = pmesh.make_axis_mesh(n, "time", device="cpu")
+    out = {"wav": _np(gl_shard.sharded_griffinlim_from_log_power(
+        spec, mesh, init_phase=torch.from_numpy(field), device="cpu", **kw))}
+    small = dict(n_iter=6, hop_length=kw["hop_length"], halo=4, rounds=3)
+    a, b, c = (_np(gl_shard.sharded_griffinlim_from_log_power(spec[:96], mesh, seed=s,
+                                                              **small))
+               for s in (5, 5, 6))
+    out["same_seed_equal"] = bool(np.array_equal(a, b))
+    out["other_seed_differs"] = not np.array_equal(a, c)
+    errors = []
+    for bad in (dict(spec=spec[:n * 12 + 1], halo=4), dict(spec=spec[:n * 8], halo=8)):
+        try:
+            gl_shard.sharded_griffinlim_from_log_power(bad["spec"], mesh, n_iter=2,
+                                                       hop_length=kw["hop_length"],
+                                                       halo=bad["halo"])
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    dmesh = pmesh.make_mesh(n, 1, device="cpu")
+    from ml_music_style_transfer_tpu_torch.infer import bulk
+
+    out["bulk"] = _np(bulk.bulk_griffinlim(specs, list(range(len(specs))), mesh=dmesh,
+                                           n_iter=3, hop_length=kw["hop_length"]))
+    out["per_clip"] = np.stack([_np(tgl.griffinlim_from_log_power(
+        s, generator=torch.Generator().manual_seed(i), n_iter=3, hop_length=kw["hop_length"],
+        device="cpu")) for i, s in enumerate(specs)])
+    out["bulk_from_fields"] = _np(bulk.bulk_griffinlim(
+        specs, list(range(len(specs))), mesh=dmesh, n_iter=3, hop_length=kw["hop_length"],
+        init_phase=torch.from_numpy(bulk_fields)))
+    if clip_dir is not None:
+        out["daemon"] = _daemon(rank, dmesh, clip_dir)
+    return out
+
+
+def _daemon(rank, mesh, clip_dir):
+    """The serving daemon on a 2-rank mesh: rank 0 reads a batch and five
+    whole-clip requests, rank 1 follows. ``c.mid`` is missing on rank 1
+    (its ``make_synth`` looks for it elsewhere), as a file one host lacks.
+    Rank 0 returns the responses, rank 1 the count it ran; both return the
+    sharded Griffin-Lim of clip a's one-device forward."""
+    import io
+    import json
+
+    from ml_music_style_transfer_tpu_torch.infer.synthesize import AudioSynthesizer
+    from ml_music_style_transfer_tpu_torch.scripts import serve
+
+    state = {k: torch.from_numpy(v) for k, v in
+             np.load(os.path.join(clip_dir, "state.npz")).items()}
+    cfg = ModelConfig(width_mult=1 / 16, compute_dtype="float32")
+
+    def make_synth(m, a):
+        if rank != 0 and os.path.basename(m) == "c.mid":
+            m = os.path.join(clip_dir, "absent", "c.mid")
+        return AudioSynthesizer(clip_dir, m, a, model_cfg=cfg, params=state, device="cpu")
+
+    midi, wav = (os.path.join(clip_dir, f) for f in ("a.mid", "a.wav"))
+    if rank != 0:
+        out = {"followed": serve.follow(make_synth, mesh)}
+    else:
+        midi2, midi3 = (os.path.join(clip_dir, f) for f in ("b.mid", "c.mid"))
+
+        def whole(m, name, **kw):
+            return {"midi": m, "audio": wav, "out": os.path.join(clip_dir, name), "n_iter": 2,
+                    "whole_clip": True, **kw}
+
+        reqs = [{"batch": [{"midi": midi, "audio": wav, "out": os.path.join(clip_dir, "m0.wav")},
+                           {"midi": "/nonexistent.mid", "audio": wav,
+                            "out": os.path.join(clip_dir, "m1.wav")},
+                           {"midi": midi2, "audio": wav, "out": os.path.join(clip_dir, "m2.wav")},
+                           {"midi": midi3, "audio": wav, "out": os.path.join(clip_dir, "m3.wav")}],
+                 "n_iter": 2},
+                whole(midi, "w0.wav", shard_gl=False),
+                whole(midi, "w1.wav", shard_gl=True, gl_halo=8, gl_rounds=2),
+                whole(midi3, "w2.wav", shard_gl=True, gl_halo=8, gl_rounds=2),
+                whole(midi, "w3.wav", shard_gl=True, gl_halo=100000),
+                whole(midi2, "w4.wav")]
+        out_s = io.StringIO()
+        served = serve.serve_loop(make_synth, io.StringIO("\n".join(json.dumps(r) for r in reqs)
+                                                          + "\n"), out_s, mesh=mesh)
+        out = {"served": served,
+               "responses": [json.loads(line) for line in out_s.getvalue().splitlines()]}
+    # the daemon's sharded request's Griffin-Lim on one device's forward
+    synth = make_synth(midi, wav)
+    roll, onoff, cond, t_total = synth.process_whole_clip(midi, wav)
+    spec = synth.predict_spectrogram_whole_clip(roll, onoff, cond, t_total)
+    hp = synth.hp
+    full = np.zeros((ts.padded_length(t_total, 2, synth.model.cfg.depth), spec.shape[1]),
+                    np.float32)
+    full[:spec.shape[0]] = spec
+    out["one_device_sharded_gl"] = _np(gl_shard.sharded_griffinlim_from_log_power(
+        full, mesh, axis_name="data", n_iter=2, hop_length=hp.ws, clip_max=hp.clip_log_power_max,
+        halo=8, seed=0, rounds=2))[:spec.shape[0] * hp.ws]
+    return out
