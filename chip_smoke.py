@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and data paths, its
 optimizer options and checkpoints, the autoencoder family, its deployment
-programs, support code and daemon soak, its multi-device layer and its
-fused conv-block kernel on one NVIDIA GPU and check them. Each phase
+programs, support code and daemon soak, its multi-device layer, its sharded
+asynchronous checkpoints, WAV decoder and profile scripts, and its fused
+conv-block kernel on one NVIDIA GPU and check them. Each phase
 prints its seconds.
 
     python3 chip_smoke.py
@@ -167,6 +168,21 @@ scipy and the standard library. Phases, each reported on its own lines:
      shard_gl=True)`` equal to ``shard_gl=False`` and ``bulk_griffinlim``
      over the (1, 1) mesh equal to per-clip Griffin-Lim (300 launches of
      each glue kernel per run); each part's seconds and peak memory;
+  21. sharded asynchronous checkpoints at full width (``checkpoint_phase``):
+     a fresh fused-Adam ``Trainer``'s 8.78 GB state written as a ``.pt``
+     (seconds) and by ``save_checkpoint_sharded`` (seconds to return and to
+     commit, first save and a second with the staging buffers reused);
+     the steps taken while the write runs against the same steps without
+     (10 + 10 dropout launches each); the restore into a fresh ``Trainer``
+     bit-equal to the state at the save call; the params-only read (seconds,
+     bytes) against the ``.pt``'s; a warm 30 s request served from the
+     ``.dcp`` equal to the same weights from memory (300 launches of each
+     glue kernel); a (1, 1) mesh ``Trainer`` with ZeRO-1 on a NCCL group of
+     one restores the ``.dcp``, saves its own, and a fresh one resumes it
+     with the next step bit-identical; the native WAV decoder against scipy
+     (within 1e-6; ms) and the daemon's requests/s with each (100 requests
+     per decoder with 30 s stereo timbres at 44.1 and 48 kHz); then
+     ``scripts/profile_step.py`` and ``profile_gl.py`` at reduced counts;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -184,11 +200,12 @@ names ``scripts/bench_inference.py`` prints, and the train step's under
 ``scripts/bench_train.py``'s. The glue kernels' ``launches`` in the
 kernels' JSON record sum their counts over phases 4, 6-9, 15 (three
 requests), 17 (the programs and the live runs they are held to), 18, 19
-(the soak) and 20 (sharded Griffin-Lim, two whole clips and two bulk
-clips), the dropout kernel's over phases 11 (12 steps), 13 (the resident
-epoch and the evaluation), 14 (12 steps), 15 (4 microbatch calls and 24
-timed steps), 18 (8 steps, 2 of them NaN-debugged) and 20 (the mesh
-step). The
+(the soak), 20 (sharded Griffin-Lim, two whole clips and two bulk
+clips) and 21 (three requests, 200 daemon requests), the dropout kernel's
+over phases 11 (12 steps), 13 (the resident epoch and the evaluation), 14
+(12 steps), 15 (4 microbatch calls and 24 timed steps), 18 (8 steps, 2 of
+them NaN-debugged), 20 (the mesh step) and 21 (the steps around the
+saves). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -196,10 +213,12 @@ without a card the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2131,6 +2150,375 @@ def mesh_glue_check(torch, glue, spec, t_total: int, cfg, hp, n: int = 2, halo: 
         check(err <= MESH_GL_TOL, f"the glue kernels disagree on rank {r}'s slice")
 
 
+# ---- phase 21: sharded asynchronous checkpoints, the WAV decoder, the profiles ---
+
+DECODER_RUN = 10  # daemon requests per timed run of one WAV decoder
+DECODER_ROUNDS = 5  # runs of each decoder at each depth, the decoders in turns
+
+
+def _stored_bytes(path: str, key: str) -> int:
+    """Bytes of a ``.dcp``'s storage items under top-level ``key``."""
+    from torch.distributed.checkpoint import FileSystemReader
+
+    md = FileSystemReader(path).read_metadata()
+    return sum(info.length for idx, info in md.storage_data.items()
+               if md.planner_data[idx.fqn][0] == key)
+
+
+class _CountingStream:
+    """A binary file whose reads add the bytes they return to ``total[0]``."""
+
+    def __init__(self, f, total: list):
+        self._f, self._total = f, total
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def _count(self, out):
+        self._total[0] += len(out)
+        return out
+
+    def read(self, *a):
+        return self._count(self._f.read(*a))
+
+    def read1(self, *a):
+        return self._count(self._f.read1(*a))
+
+    def readline(self, *a):
+        return self._count(self._f.readline(*a))
+
+    def readinto(self, b):
+        n = self._f.readinto(b)
+        self._total[0] += n or 0
+        return n
+
+
+@contextlib.contextmanager
+def dcp_bytes_read():
+    """Yields ``[n]``: the bytes DCP's file reads return while the block runs
+    (every stream ``FileSystem.create_stream`` opens for reading is
+    counted: the metadata and each item read)."""
+    from torch.distributed.checkpoint import filesystem
+
+    create = filesystem.FileSystem.create_stream
+    total = [0]
+
+    @contextlib.contextmanager
+    def counted(self, path, mode):
+        with create(self, path, mode) as stream:
+            yield _CountingStream(stream, total) if "r" in mode else stream
+
+    filesystem.FileSystem.create_stream = counted
+    try:
+        yield total
+    finally:
+        filesystem.FileSystem.create_stream = create
+
+
+def _same_tree(torch, got, want, path="") -> list:
+    """Paths where ``got`` and ``want`` differ (tensors bit for bit)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path or "<root>"]
+        return [p for k in want for p in _same_tree(torch, got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, torch.Tensor):
+        ok = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and torch.equal(got.to(want.device), want))
+        return [] if ok else [path]
+    return [] if got == want else [path]
+
+
+def checkpoint_phase(torch, dk, glue, binf, tmp):
+    """Sharded asynchronous checkpoints at full width (731,945,857 params,
+    fused float32 Adam, batch 16 of seeded chunks, bf16): a synchronous
+    ``.pt`` save's seconds; ``save_checkpoint_sharded``'s seconds to return
+    and to commit, the first save (page-locked staging buffers allocated)
+    and a second (buffers reused); the median step while the first write
+    runs against the same steps with no write (10 + 10 dropout launches
+    each); the restore of the first save into a fresh Trainer, bit-equal to
+    the state at the save call (every tensor); the params-only restore's
+    seconds and bytes read against the ``.pt``'s (mapped, and read whole as
+    before); a warm 30 s request served from the ``.dcp`` equal to serving
+    the weights at the save from memory (300 launches of each glue kernel);
+    a (1, 1) mesh Trainer with ZeRO-1 on a NCCL group of one restores the
+    one-device ``.dcp`` into its placement, saves its own and a fresh mesh
+    Trainer resumes it, the next step bit-identical. Then the native WAV
+    decoder against scipy (30 s stereo int16 at 44.1 kHz, and at 48 kHz
+    resampled; max error and ms), the daemon's requests/s with each decoder
+    (10 s songs, each with one of those two files as its timbre; runs of 10
+    requests, serial and pipelined, the decoders in turns, 100 requests per
+    decoder, after two untimed requests);
+    and the two profile scripts at reduced counts. Returns (dropout
+    launches, glue launches)."""
+    import functools
+
+    import torch.distributed as dist
+    from scipy.io import wavfile
+
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.data import audio_io
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as S
+    from ml_music_style_transfer_tpu_torch.parallel import mesh as pmesh
+    from ml_music_style_transfer_tpu_torch.scripts import profile_gl, profile_step
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, stage_batch
+
+    cuda = torch.device("cuda")
+    raw = host_arrays(16, seed=21)
+    cond_key, target_key = sorted(k for k in raw if k.startswith("spec_"))[:2]
+    batch = stage_batch({"midi": raw["pianoroll"], "onoff": raw["onoff"],
+                         "cond": np.ascontiguousarray(raw[cond_key].transpose(0, 2, 1)),
+                         "target": np.ascontiguousarray(raw[target_key].transpose(0, 2, 1)),
+                         "weight": np.ones((16,), np.float32)}, cuda)
+    del raw
+    tr = Trainer(ModelConfig(), TrainConfig(batch_size=16), device="cuda")
+    tr.init_state(0)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    check(n_params == FULL_WIDTH_PARAMS, f"checkpoints: {n_params} params")
+    dk.reset_launches()
+    n_steps = 0
+
+    def step_s(trainer) -> float:
+        """Seconds of one train step, synchronised on both sides."""
+        nonlocal n_steps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(batch, trainer.next_dropout_seed())
+        torch.cuda.synchronize()
+        n_steps += 1
+        return time.perf_counter() - t
+
+    for _ in range(2):  # warm
+        step_s(tr)
+    state_gb = 3 * 4 * n_params / 1e9
+
+    # a synchronous .pt, and the steps with no write going on
+    t = time.perf_counter()
+    pt_path = ckpt.save_checkpoint(tmp, 1, tr.state_dict(1))
+    pt_s = time.perf_counter() - t
+    quiet = [step_s(tr) for _ in range(6)]
+
+    # the sharded save: staged, returned, written while the steps run
+    want = ckpt.tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor) else v,
+                          tr.state_dict(1))
+    pool: dict = {}  # the staging buffers, kept from save to save as fit keeps them
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint_sharded(tmp, 1, tr.sharded_state_dict(1), buffers=pool)
+    ret_s = time.perf_counter() - t0
+    during, flushing = [], []  # each step's seconds; whether the write ran at its start
+    while len(during) < 6 or (flushing[-1] and len(during) < 60):
+        flushing.append(not os.path.exists(path))
+        during.append(step_s(tr))
+    ckpt.wait_for_async_saves()
+    commit_s = time.perf_counter() - t0
+    n_during = sum(flushing)
+    overlapped = [d for d, f in zip(during, flushing) if f]
+    check(n_during >= 5, f"checkpoints: only {n_during} steps ran while the write went on")
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 10 * n_steps,
+          f"checkpoints: dropout launches {dict(dk.LAUNCHES)} after {n_steps} steps")
+    on_disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    print(f"checkpoints: state {state_gb:.2f} GB (params + Adam moments, float32); .pt "
+          f"synchronous save {pt_s:.2f} s ({os.path.getsize(pt_path) / 1e9:.2f} GB); "
+          f".dcp save_checkpoint_sharded returned after {ret_s:.3f} s (first save: page-locked "
+          f"staging allocated), committed after {commit_s:.2f} s ({on_disk / 1e9:.2f} GB)")
+    print(f"checkpoints: step s with no write {[round(x, 4) for x in quiet]} (median "
+          f"{statistics.median(quiet):.4f}); during the write {[round(x, 4) for x in during]} "
+          f"(median of the {n_during} that ran while it went on "
+          f"{statistics.median(overlapped):.4f}); dropout launches 10 + 10 per step")
+
+    # the restore into a fresh Trainer: the state at the save call
+    t = time.perf_counter()
+    tr2 = Trainer(ModelConfig(), TrainConfig(batch_size=16), device="cuda")
+    tr2.init_state(1)
+    epoch = tr2.load_sharded_state(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    diff = _same_tree(torch, tr2.state_dict(epoch), want)
+    check(epoch == 1 and not diff, f"checkpoints: the restore differs at {diff[:5]}")
+    n_tensors = sum(1 for _ in _leaves(want))
+    print(f"checkpoints: restore into a fresh Trainer (init + read + load) {restore_s:.2f} s: "
+          f"bit-equal to the state at the save call ({n_tensors} leaves), though "
+          f"{n_during} steps changed the weights and moments in place during the write")
+    del tr2
+
+    # serving start-up: the params alone, against the .pt
+    with dcp_bytes_read() as counted_bytes:
+        t = time.perf_counter()
+        params = ckpt.restore_checkpoint(path, keys=("params",))["params"]
+        dcp_s = time.perf_counter() - t
+    dcp_bytes = counted_bytes[0]
+    check(not _same_tree(torch, params, want["params"]), "checkpoints: params-only restore")
+    t = time.perf_counter()
+    mapped = ckpt.restore_checkpoint(pt_path, keys=("params",))["params"]
+    S.build_model(ModelConfig(), mapped, cuda)
+    torch.cuda.synchronize()
+    pt_mapped_s = time.perf_counter() - t
+    t = time.perf_counter()
+    S.build_model(ModelConfig(), params, cuda)
+    torch.cuda.synchronize()
+    dcp_upload_s = time.perf_counter() - t
+    t = time.perf_counter()
+    whole = torch.load(pt_path, map_location="cpu", weights_only=True)
+    pt_whole_s, pt_whole_bytes = time.perf_counter() - t, os.path.getsize(pt_path)
+    params_gb = 4 * n_params / 1e9
+    check(4 * n_params <= dcp_bytes < 1.1 * 4 * n_params,
+          f"checkpoints: the params-only read read {dcp_bytes} B")
+    print(f"checkpoints: params-only restore of the .dcp {dcp_s:.2f} s, {dcp_bytes / 1e9:.3f} GB "
+          f"read from its files, counted at DCP's file streams (params {params_gb:.2f} GB, "
+          f"stored as {_stored_bytes(path, 'params') / 1e9:.3f} GB of {on_disk / 1e9:.3f} GB; "
+          f"page cache warm), model built on the card from it "
+          f"{dcp_upload_s:.2f} s more; the .pt's params through its memory map, model built, "
+          f"{pt_mapped_s:.2f} s; the whole .pt read as before {pt_whole_s:.2f} s, "
+          f"{pt_whole_bytes / 1e9:.3f} GB read")
+    del whole, mapped
+    os.remove(pt_path)
+
+    # a warm 30 s request served from the .dcp against the weights at the save
+    midi, wav = binf.make_clip(tmp, "ckpt", 30.0, 21)
+    S.clear_caches()
+    gl = 0
+    from_file = S.AudioSynthesizer(tmp, midi, wav, model_cfg=ModelConfig(),
+                                   checkpoint_path=path, device="cuda")
+    live = S.AudioSynthesizer(tmp, midi, wav, model_cfg=ModelConfig(), params=want["params"],
+                              device="cuda")
+    waves = {}
+    for what, synth in (("dcp, first", from_file), ("dcp, warm", from_file), ("memory", live)):
+        glue.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        waves[what] = synth.synthesize_waveform(n_iter=N_ITER)
+        dt = time.perf_counter() - t
+        gl += counted(glue, N_ITER, f"checkpoints: request ({what})")
+        print(f"checkpoints: 30 s request, weights from {what}: {dt:.4f} s")
+        if what == "dcp, warm":
+            print(binf.metric_line("serving_s_per_30s_clip", dt, "s", cuda, midi_s=30.0,
+                                   n_iter=N_ITER, request="params from .dcp (warm)"))
+    y = waves["dcp, warm"]
+    check(y.shape == (midi_frames(midi) * 256,) and bool(np.isfinite(y).all()),
+          "checkpoints: waveform shape or values")
+    check(np.array_equal(y, waves["memory"]) and np.array_equal(y, waves["dcp, first"]),
+          "checkpoints: serving from the .dcp differs from serving the same weights from memory")
+    print("checkpoints: served from the .dcp (only 'params' read): waveform equal to the "
+          "weights at the save served from memory; 300 launches of each glue kernel per request")
+    make_synth = functools.partial(S.AudioSynthesizer, tmp, model_cfg=ModelConfig(),
+                                   params=params, device="cuda")
+    del from_file, live, waves
+    S.clear_caches()
+
+    # ZeRO-1 on a (1, 1) mesh over a NCCL group of one
+    t = time.perf_counter()
+    pmesh.distributed_init("cuda", init_method=f"tcp://localhost:{pmesh.free_port()}",
+                           world_size=1, rank=0)
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    zcfg = TrainConfig(batch_size=16, zero_opt=True)
+    tz = Trainer(ModelConfig(), zcfg, device="cuda", mesh=mesh)
+    tz.init_state(1)
+    tz.load_sharded_state(path)
+    diff = _same_tree(torch, tz.state_dict(1), want)
+    check(not diff, f"checkpoints: the one-device .dcp restored on the mesh differs at {diff[:5]}")
+    del want
+    t1 = time.perf_counter()
+    zpath = ckpt.save_checkpoint_sharded(os.path.join(tmp, "zero"), 2, tz.sharded_state_dict(2),
+                                         buffers=pool)
+    zret_s = time.perf_counter() - t1
+    loss_a = float(tz.train_step(batch, 7))  # in place, during the write
+    ckpt.wait_for_async_saves()
+    zcommit_s = time.perf_counter() - t1
+    pool.clear()
+    after_a = {k: v.clone() for k, v in tz.model.state_dict().items()}
+    del tz, tr
+    gc.collect()
+    tz2 = Trainer(ModelConfig(), zcfg, device="cuda", mesh=mesh)
+    tz2.init_state(2)
+    check(tz2.load_sharded_state(zpath) == 2, "checkpoints: ZeRO resume epoch")
+    loss_b = float(tz2.train_step(batch, 7))
+    diff = _same_tree(torch, tz2.model.state_dict(), after_a)
+    check(loss_a == loss_b and not diff,
+          f"checkpoints: ZeRO step after the .dcp resume differs ({loss_a} vs {loss_b}, {diff[:5]})")
+    n_steps += 2
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 10 * n_steps,
+          f"checkpoints: dropout launches {dict(dk.LAUNCHES)} after {n_steps} steps")
+    print(f"checkpoints: (1, 1) mesh, ZeRO-1, NCCL group of one: the one-device .dcp restored "
+          f"into its placement bit-equal; its own .dcp resumed and the next step bit-identical "
+          f"(loss {loss_b:.6f}); {time.perf_counter() - t:.2f} s")
+    print(f"checkpoints: second save_checkpoint_sharded (the mesh's, staging buffers reused) "
+          f"returned after {zret_s:.3f} s, committed after {zcommit_s:.2f} s")
+    del tz2, after_a, batch
+    dist.destroy_process_group()
+    shutil.rmtree(path)
+    shutil.rmtree(zpath)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the native WAV decoder against scipy
+    rng = np.random.default_rng(22)
+    for rate in (44100, 48000):
+        st = (0.3 * rng.standard_normal((30 * rate, 2))).clip(-1, 1)
+        wpath = os.path.join(tmp, f"stereo{rate}.wav")
+        wavfile.write(wpath, rate, (st * 32767).astype(np.int16))
+        ms = {}
+        for name, native in (("native", None), ("scipy", False)):
+            runs = []
+            for _ in range(3):
+                t = time.perf_counter()
+                y_dec, got_rate = audio_io.read_wav(wpath, sr=44100, native=native)
+                runs.append((time.perf_counter() - t) * 1e3)
+            ms[name] = (statistics.median(runs), y_dec)
+        err = float(np.abs(ms["native"][1] - ms["scipy"][1]).max())
+        check(err <= 1e-6 and ms["native"][1].shape == ms["scipy"][1].shape,
+              f"wavdec: native vs scipy at {rate} Hz: max error {err}")
+        print(f"wavdec: 30 s stereo int16 at {rate} Hz -> 44.1 kHz mono: native "
+              f"{ms['native'][0]:.2f} ms, scipy {ms['scipy'][0]:.2f} ms, max |native - scipy| "
+              f"{err:.3g}")
+    # the daemon with each decoder, on what it reads: 10 s songs, each with a
+    # 30 s stereo timbre at 44.1 or 48 kHz (resampled as it is decoded)
+    timbres = [os.path.join(tmp, f"stereo{rate}.wav") for rate in (44100, 48000)]
+    songs = [binf.make_clip(tmp, f"wd{i}", 10.0, 60 + i)[0] for i in range(4)]
+    singles = [{"midi": songs[i % 4], "audio": timbres[i % 2],
+                "out": os.path.join(tmp, f"wd{i}.wav"), "n_iter": N_ITER}
+               for i in range(DECODER_RUN)]
+    real_read = audio_io.read_wav
+    runs = {}  # (decoder, depth) -> seconds of each run
+    binf.daemon_seconds(make_synth, singles[:2], 0)  # builds the model: no run pays for it
+    try:
+        for r in range(DECODER_ROUNDS):
+            for decoder in (("native", "scipy") if r % 2 == 0 else ("scipy", "native")):
+                audio_io.read_wav = (real_read if decoder == "native"
+                                     else functools.partial(real_read, native=False))
+                for depth in (0, 2):
+                    glue.reset_launches()
+                    dt, resps = binf.daemon_seconds(make_synth, singles, depth)
+                    gl += counted(glue, DECODER_RUN * N_ITER,
+                                  f"wavdec daemon ({decoder}, depth {depth})")
+                    check(all(x["ok"] for x in resps), f"wavdec daemon: {resps}")
+                    runs.setdefault((decoder, depth), []).append(dt)
+    finally:
+        audio_io.read_wav = real_read
+    for decoder in ("native", "scipy"):
+        for depth, name in ((0, "serial"), (2, "pipelined")):
+            secs = runs[(decoder, depth)]
+            print(binf.metric_line(f"daemon_requests_per_s_{name}",
+                                   DECODER_RUN * len(secs) / sum(secs), "requests/s", cuda,
+                                   requests=DECODER_RUN * len(secs), midi_s=10.0,
+                                   timbre="30 s stereo int16, 44.1 and 48 kHz in turns",
+                                   wav_decoder=decoder,
+                                   runs=[round(DECODER_RUN / x, 3) for x in secs]))
+    S.clear_caches()
+    del make_synth, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the profile scripts at reduced counts (their launches are not the main path's)
+    profile_step.main(["--n-iter", "3", "--warmup", "1"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_gl.main(["--n-iter", "50", "--warmup", "5"])
+    dk.reset_launches()
+    glue.reset_launches()
+    return 20 * n_steps, gl
+
+
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
 
 FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
@@ -2385,6 +2773,15 @@ def main() -> None:
     gl_launches += md_gl
     check(not any(fc.LAUNCHES.values()), "phase 20 launched the fused conv kernel")
     del state
+    synth_mod.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_dropout, ck_gl = timed("21 (checkpoints, WAV decoder, profiles)", checkpoint_phase,
+                                  torch, dk, glue, binf, tmp)
+    dropout_launches += ck_dropout
+    gl_launches += ck_gl
+    check(not any(fc.LAUNCHES.values()), "phase 21 launched the fused conv kernel")
     synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()

@@ -17,6 +17,8 @@ rank count the launch does not provide raises ``ValueError``.
 
 The rules (``param_shard_dim``, ``zero_extend``) are the JAX package's
 PartitionSpec rules on the port's ``state_dict`` names and layouts.
+``checkpoint_mesh`` and ``placements`` say where a rank's TP and ZeRO
+slices lie in the whole tensor, for the sharded checkpoints.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import socket
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
 
 from ..device import resolve_device
 
@@ -241,3 +244,25 @@ def zero_extend(shape, n: int, taken: int | None = None) -> int | None:
 def per_rank_bytes(tensors) -> int:
     """Bytes of ``tensors`` held on this rank."""
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def checkpoint_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """``mesh``'s ranks ordered (model, *batch axes), a mesh with no process
+    groups of its own: the mesh the checkpoints' DTensors are placed on.
+    TP slices a tensor first and ZeRO slices that rank's TP slice over the
+    batch axes (dcn-major), so where both take one dim the model axis is
+    the outer split; DTensor splits along its mesh's dims in their order."""
+    names = tuple(mesh.mesh_dim_names)
+    order = tuple(a for a in ("model", *batch_axes(mesh)) if a in names)
+    ranks = mesh.mesh.permute(*(names.index(a) for a in order)).contiguous()
+    return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=order, _init_backend=False)
+
+
+def placements(ckpt_mesh: DeviceMesh, tp_dim: int | None, zero_dim: int | None) -> list:
+    """The DTensor placements on ``checkpoint_mesh`` of a tensor whose TP
+    slice is along ``tp_dim`` and whose ZeRO slice (of the TP slice) is
+    along ``zero_dim`` (None: whole over that axis)."""
+    def on(dim):
+        return Replicate() if dim is None else Shard(dim)
+
+    return [on(tp_dim if name == "model" else zero_dim) for name in ckpt_mesh.mesh_dim_names]

@@ -50,8 +50,9 @@ clips split over the ranks (``infer/bulk.py``), and a whole clip's forward
 (``parallel/time_shard.py``, ``gl_shard.py``). Single requests run on rank
 0's card. ``--mesh-data`` must equal the launch's rank count.
 
-``--checkpoint`` (default: the experiment's best) may be a port ``.pt``, a
-JAX ``.msgpack`` or a reference ``.tar``; ``--use-ema`` serves the EMA
+``--checkpoint`` (default: the experiment's best) may be a port ``.pt`` or
+``.dcp``, a JAX ``.msgpack`` or a reference ``.tar``; only the served tree
+is read at start-up. ``--use-ema`` serves the EMA
 weights of a run trained with ``--ema-decay``.
 """
 from __future__ import annotations

@@ -7,37 +7,65 @@ checkpoint inference loads (model/train.py:202-208, inference.py:120-122).
 This module keeps that contract (``ExperimentState`` writes the same field
 names) and the JAX package's resume path.
 
-Two file formats:
+Three formats:
   - ``checkpoint-{epoch}.pt`` (``torch.save``, the port's default) holds the
     JAX state's keys with the port's values: ``{"params": model
     state_dict (reference key names), "opt_state": ``optim.export_state``
     (the optimizer's state keyed by parameter name), "epoch",
     "scheduler"}``, plus ``"ema_params"`` where the
-    run kept an EMA;
+    run kept an EMA; it is read through a memory map, so the keys a
+    caller does not ask for are never read (serving skips the Adam
+    moments);
   - ``checkpoint-{epoch}.msgpack`` is the JAX package's flax msgpack,
     read and written by ``train/flax_msgpack.py`` (no flax, no msgpack):
     its trees are in the JAX layout (``compat/weights.py`` translates).
     ``restore_checkpoint`` returns such a file's tree as it stands; the
-    ``Trainer`` and the synthesizer translate it.
-Where both formats hold one epoch, the ``.pt`` wins. Orbax directories
-(``checkpoint-{epoch}.orbax``) need orbax, which the card's machine lacks:
-a directory holding only those raises ``NotImplementedError`` naming
-ROADMAP queue 1 item 7a.
+    ``Trainer`` and the synthesizer translate it;
+  - ``checkpoint-{epoch}.dcp`` is a directory written by
+    ``torch.distributed.checkpoint`` (DCP), the counterpart of the JAX
+    package's orbax path (its ``checkpoint.py:73-177``): the ``.pt``'s keys
+    and values, where on a mesh each rank writes only the slices it holds
+    (DTensors placed by ``parallel/mesh.placements``; a replicated tensor
+    is written once) and nothing is gathered. ``save_checkpoint_sharded``
+    copies the state to page-locked host memory (the caller's buffers,
+    reused from save to save, or new ones freed when the write ends) and
+    returns; the write goes on in a background thread into
+    ``checkpoint-{epoch}.dcp.tmp``, which is renamed on commit, so a save
+    that never finished never appears under the checkpoint's name. The
+    next save, a restore and ``wait_for_async_saves`` join it. A restore
+    reads only the slices its template's placement needs, on any mesh;
+    ``restore_checkpoint(path, keys=("params",))`` reads that one tree and
+    nothing else.
+Where one epoch has several, the ``.pt`` wins, then the ``.msgpack``, then
+the ``.dcp``. Orbax directories (``checkpoint-{epoch}.orbax``) that the JAX
+package wrote need orbax and a zstd decoder, which the card's machine
+lacks: a directory holding only those raises ``NotImplementedError``
+naming ROADMAP queue 1 item 7a.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import copy
 import glob
 import json
 import os
 import re
+import shutil
 from typing import Any, Iterable
 
 import torch
+import torch.distributed as dist
+import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from . import flax_msgpack
 
-ORBAX_ITEM = "ROADMAP queue 1 item 7a (orbax checkpoints)"
+ORBAX_ITEM = ("ROADMAP queue 1 item 7a (reading orbax directories the JAX package "
+              "wrote)")
 FORMATS = {"torch": "pt", "msgpack": "msgpack"}
+SHARDED_EXT = "dcp"
 
 
 class ExperimentState:
@@ -68,7 +96,10 @@ class ExperimentState:
 
 
 def checkpoint_path(exp_dir: str, epoch: int, fmt: str = "torch") -> str:
-    return os.path.join(exp_dir, f"checkpoint-{epoch}.{FORMATS[fmt]}")
+    """``checkpoint-{epoch}`` with the extension of ``fmt`` ("torch",
+    "msgpack" or "dcp")."""
+    ext = SHARDED_EXT if fmt == "dcp" else FORMATS[fmt]
+    return os.path.join(exp_dir, f"checkpoint-{epoch}.{ext}")
 
 
 def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -> str:
@@ -79,7 +110,7 @@ def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -
     its name."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown checkpoint format {fmt!r}; 'torch' or 'msgpack' "
-                         f"('orbax' waits for {ORBAX_ITEM})")
+                         "('dcp': save_checkpoint_sharded)")
     path = checkpoint_path(exp_dir, epoch, fmt)
     if fmt == "msgpack":
         return flax_msgpack.dump(state, path)
@@ -89,17 +120,240 @@ def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -
     return path
 
 
+def tree_map(fn, tree):
+    """``fn`` on every leaf of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def restore_checkpoint(path: str, device="cpu", keys: Iterable[str] | None = None
                        ) -> dict[str, Any]:
-    """The dict a checkpoint holds: a ``.pt`` with its tensors on
-    ``device``; a ``.msgpack`` as its flax tree of CPU tensors (only the
-    top-level ``keys`` where given, the rest skipped unread)."""
-    if path.endswith(".msgpack"):
-        return flax_msgpack.load(path, keys)
+    """The dict a checkpoint holds, only its top-level ``keys`` where given
+    (the rest is not read; a key it lacks raises ``ValueError``): a ``.pt``
+    or ``.dcp`` with its tensors whole, on ``device``; a ``.msgpack`` as its
+    flax tree of CPU tensors."""
     if path.endswith(".orbax"):
         raise NotImplementedError(f"{path}: reading orbax checkpoints waits for {ORBAX_ITEM}")
-    state = torch.load(path, map_location=device, weights_only=True)
-    return state if keys is None else {k: state[k] for k in keys if k in state}
+    if path.endswith(".msgpack"):
+        state = flax_msgpack.load(path, keys)
+    elif path.endswith(f".{SHARDED_EXT}"):
+        state = _restore_host(path, keys)
+    else:
+        # mapped, not read: only the tensors kept below are paged in
+        state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        if keys is not None:
+            state = {k: state[k] for k in keys if k in state}
+    for key in keys or ():
+        if key not in state:
+            raise ValueError(
+                f"checkpoint {path} has no '{key}' tree"
+                + (" — was --ema-decay set during training?" if key == "ema_params" else ""))
+    if path.endswith(".msgpack"):
+        return state
+    dev = torch.device(device)
+    return tree_map(lambda v: v.to(dev) if isinstance(v, torch.Tensor) else v, state)
+
+
+# ---- sharded asynchronous checkpoints (torch.distributed.checkpoint) -------
+
+class _AsyncSaver:
+    """The one background write in flight and the gloo group DCP
+    coordinates the ranks of a mesh over (the training loop's own
+    collectives never share it). The host copy a write was staged into is
+    referenced only by the write (and by the caller's ``buffers``): it is
+    freed when the write ends."""
+
+    def __init__(self):
+        self.executor: concurrent.futures.ThreadPoolExecutor | None = None
+        self.pending: tuple[concurrent.futures.Future, Any] | None = None
+        self.groups: dict[Any, Any] = {}
+
+    def group(self):
+        """The checkpoint group of the current default group (made once,
+        by every rank)."""
+        world = dist.group.WORLD
+        if world not in self.groups:
+            self.groups[world] = dist.new_group(backend="gloo")
+        return self.groups[world]
+
+    def wait(self) -> None:
+        if self.pending is None:
+            return
+        future, group = self.pending
+        self.pending = None
+        future.result()  # a failed write raises here
+        if group is not None:
+            dist.barrier(group=group)  # the coordinator has committed
+
+    @staticmethod
+    def stage(state: dict, buffers: dict) -> dict:
+        """A host copy of ``state`` (page-locked where it comes from the
+        card) that no later in-place update of its tensors (the next
+        optimizer step) reaches; on return the copies from the card have
+        completed. The copy's buffers are taken from ``buffers`` where one
+        of the same shape and dtype is there, and left in it."""
+        on_card = []
+
+        def copy_leaf(path, v):
+            if not isinstance(v, torch.Tensor):
+                return copy.deepcopy(v)
+            local = v.to_local() if isinstance(v, DTensor) else v
+            buf = buffers.get(path)
+            if buf is None or buf.shape != local.shape or buf.dtype != local.dtype:
+                buf = torch.empty(local.shape, dtype=local.dtype, pin_memory=local.is_cuda)
+                buffers[path] = buf
+            buf.copy_(local.detach(), non_blocking=local.is_cuda)
+            if local.is_cuda:
+                on_card.append(local.device)
+            if isinstance(v, DTensor):
+                mesh = v.device_mesh
+                host = DeviceMesh("cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names,
+                                  _init_backend=False)
+                return DTensor.from_local(buf, host, v.placements, run_check=False)
+            return buf
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            return copy_leaf(path, tree)
+
+        staged = walk(state, ())
+        for dev in set(on_card):
+            torch.cuda.synchronize(dev)
+        return staged
+
+
+_SAVER = _AsyncSaver()
+
+
+def _has_dtensor(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    return isinstance(tree, DTensor)
+
+
+def _is_coordinator(group) -> bool:
+    return group is None or dist.get_rank(group) == 0
+
+
+def sharded_checkpoint_path(exp_dir: str, epoch: int) -> str:
+    return os.path.abspath(checkpoint_path(exp_dir, epoch, "dcp"))
+
+
+def _flush(box: list, tmp: str, path: str, group) -> str:
+    """Write the staged state ``box`` holds, then commit. The box is
+    emptied so that this frame holds the state's only reference: it is
+    freed before the write's future completes."""
+    staged = box.pop()
+    dcp.save(staged, storage_writer=dcp.FileSystemWriter(tmp), process_group=group,
+             no_dist=group is None)
+    del staged
+    if _is_coordinator(group):  # every rank's files are in: commit
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+    return path
+
+
+def save_checkpoint_sharded(exp_dir: str, epoch: int, state: dict,
+                            wait: bool = False, buffers: dict | None = None) -> str:
+    """Write ``state`` as ``checkpoint-{epoch}.dcp``, each rank its own
+    slices: tensors are whole (one device) or DTensors (a mesh; every rank
+    of it calls this). Returns once ``state`` is copied to the host; the
+    write goes on in a background thread and commits by renaming
+    ``checkpoint-{epoch}.dcp.tmp``. The next save, a restore and
+    ``wait_for_async_saves`` join it; ``wait=True`` joins it here. An
+    existing checkpoint of that epoch is replaced.
+
+    ``buffers``: a dict the caller keeps from save to save (``fit`` keeps
+    one for its run): the host copy's page-locked buffers are reused from
+    it and stay allocated while the caller holds it (the state's size:
+    8.78 GB at full width with fused Adam). Where None the copy is
+    allocated anew and freed when the write ends."""
+    _SAVER.wait()
+    group = _SAVER.group() if _has_dtensor(state) else None
+    path = sharded_checkpoint_path(exp_dir, epoch)
+    tmp = f"{path}.tmp"
+    if _is_coordinator(group) and os.path.exists(tmp):
+        shutil.rmtree(tmp)  # a save that never committed
+    if group is not None:
+        dist.barrier(group=group)
+    box = [_SAVER.stage(state, {} if buffers is None else buffers)]
+    if _SAVER.executor is None:
+        _SAVER.executor = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="checkpoint-flush")
+    _SAVER.pending = (_SAVER.executor.submit(_flush, box, tmp, path, group), group)
+    del box
+    if wait:
+        _SAVER.wait()
+    return path
+
+
+def wait_for_async_saves() -> None:
+    """Join the background write of the last ``save_checkpoint_sharded``
+    (on a mesh every rank calls it); it raises what the write raised."""
+    _SAVER.wait()
+
+
+def _tree_paths(tree, path=()) -> set[tuple]:
+    if isinstance(tree, dict):
+        return set().union(*(_tree_paths(v, path + (k,)) for k, v in tree.items()))
+    return {path}
+
+
+def _metadata(path: str):
+    if not os.path.isdir(path):
+        raise FileNotFoundError(path)
+    return dcp.FileSystemReader(path).read_metadata()
+
+
+def restore_checkpoint_sharded(path: str, template: dict) -> dict:
+    """Fill ``template`` from the ``.dcp`` at ``path`` and return it. Its
+    tensors (whole, or DTensors: each rank reads only the slices its
+    placement holds, on whatever mesh, not only the one that wrote it) are
+    written in place on their devices; its other leaves are replaced by
+    the saved values. A template key the checkpoint lacks raises
+    ``ValueError``; keys it does not name are not read."""
+    _SAVER.wait()
+    missing = _tree_paths(template) - set(_metadata(path).planner_data.values())
+    if missing:
+        raise ValueError(f"checkpoint {path} lacks {sorted('.'.join(p) for p in missing)}: "
+                         "it was written for another model or other optimizer options")
+    group = _SAVER.group() if _has_dtensor(template) else None
+    dcp.load(template, storage_reader=dcp.FileSystemReader(path), process_group=group,
+             no_dist=group is None)
+    return template
+
+
+def _restore_host(path: str, keys: Iterable[str] | None = None) -> dict:
+    """The ``.dcp``'s trees under top-level ``keys`` (all where None) as
+    whole CPU tensors, with no template: shapes and dtypes come from the
+    checkpoint's metadata. The other trees are not read."""
+    _SAVER.wait()
+    md = _metadata(path)
+    tree: dict = {}
+    for fqn, p in md.planner_data.items():
+        if keys is not None and p[0] not in keys:
+            continue
+        meta = md.state_dict_metadata[fqn]
+        node = tree
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = (torch.empty(meta.size, dtype=meta.properties.dtype)
+                       if isinstance(meta, TensorStorageMetadata) else None)
+    if tree:
+        dcp.load(tree, storage_reader=dcp.FileSystemReader(path), no_dist=True)
+    return tree
+
+
+# the JAX package's names for the host reads of an orbax directory
+def restore_checkpoint_sharded_host(path: str) -> dict:
+    return restore_checkpoint(path)
+
+
+def restore_params_sharded_host(path: str, key: str = "params") -> dict:
+    return restore_checkpoint(path, keys=(key,))[key]
 
 
 def _epochs(exp_dir: str, ext: str) -> dict[int, str]:
@@ -112,10 +366,12 @@ def _epochs(exp_dir: str, ext: str) -> dict[int, str]:
 
 
 def latest_checkpoint(exp_dir: str) -> tuple[str, int] | None:
-    """(path, epoch) of the newest .pt or .msgpack checkpoint in exp_dir
-    (the .pt where both hold that epoch), or None. Raises
+    """(path, epoch) of the newest committed checkpoint in exp_dir (for one
+    epoch the .pt, else the .msgpack, else the .dcp; a ``.dcp.tmp`` that
+    never committed is no checkpoint), or None. Raises
     NotImplementedError where only orbax checkpoints exist."""
-    found = {**_epochs(exp_dir, "msgpack"), **_epochs(exp_dir, "pt")}
+    found = {**_epochs(exp_dir, SHARDED_EXT), **_epochs(exp_dir, "msgpack"),
+             **_epochs(exp_dir, "pt")}
     if found:
         epoch = max(found)
         return found[epoch], epoch
@@ -129,14 +385,15 @@ def latest_checkpoint(exp_dir: str) -> tuple[str, int] | None:
 
 def best_checkpoint(exp_dir: str) -> tuple[str, int]:
     """The checkpoint inference should load, via hyperparams.json's
-    best_epoch: ``checkpoint-{best}.pt``, else ``.msgpack``, else the
-    reference's own ``checkpoint-{best}.tar`` (train.py:202-204), else the
-    newest .pt or .msgpack (a best-epoch file lost in a crash; with a
-    warning). Where only orbax checkpoints exist it raises
-    NotImplementedError."""
+    best_epoch: ``checkpoint-{best}.pt``, else ``.msgpack``, else ``.dcp``,
+    else the reference's own ``checkpoint-{best}.tar`` (train.py:202-204),
+    else the newest committed checkpoint (a best-epoch save lost in a
+    crash, or an asynchronous one that never committed; with a warning).
+    Where only orbax checkpoints exist it raises NotImplementedError."""
     with open(os.path.join(exp_dir, "hyperparams.json")) as f:
         best = json.load(f)["best_epoch"]  # all inference reads (inference.py:120-122)
     for path in (checkpoint_path(exp_dir, best), checkpoint_path(exp_dir, best, "msgpack"),
+                 checkpoint_path(exp_dir, best, "dcp"),
                  os.path.join(exp_dir, f"checkpoint-{best}.tar")):
         if os.path.exists(path):
             return path, best

@@ -7,14 +7,17 @@ flags, plus ``--device`` (default ``cuda``; with no card it fails).
         [--width-mult F] [--spectral-loss W] [--stream-bf16] [--device-resident] \
         [--adam-mu-dtype bfloat16] [--adam-nu-dtype bfloat16] [--grads-dtype bfloat16] \
         [--grad-clip-norm X] [--warmup-steps N] [--ema-decay D] [--grad-accum K] \
-        [--ckpt-format torch|msgpack] [--device D] \
+        [--ckpt-format torch|msgpack|dcp] [--device D] \
         [--mesh-data N] [--mesh-model M] [--zero-opt] [--store-sharding replicated|data]
 
 Reading the HDF5 dataset needs ``h5py``. ``--device-resident`` keeps the
 train split on the card (a file preprocessed with ``--store-audio``) and
 assembles each batch there. The optimizer options are the JAX package's
 (``train/optim.py``); ``--ckpt-format msgpack`` writes the JAX package's
-``checkpoint-{epoch}.msgpack``, which its ``restore_checkpoint`` reads.
+``checkpoint-{epoch}.msgpack``, which its ``restore_checkpoint`` reads, and
+``--ckpt-format dcp`` a sharded ``checkpoint-{epoch}.dcp`` directory
+(``torch.distributed.checkpoint``), written in the background while
+training goes on, each rank of a mesh its own slices.
 ``--debug-nans`` trains under ``utils/profiling.nan_debugging``: the first
 operator that outputs a NaN raises ``FloatingPointError`` naming it (the
 JAX package's ``jax_debug_nans``). Every CUDA kernel is built before the
@@ -31,7 +34,9 @@ dims (TP), ``--zero-opt`` the optimizer state over the data axis (ZeRO-1),
 and ``--store-sharding data`` splits a ``--device-resident`` store's rows
 over the data axis. ``--device cpu`` runs the ranks on the CPU (gloo).
 ``--ckpt-format orbax`` is refused with ``NotImplementedError`` naming
-ROADMAP item 7a. Reference CLI: model/train.py:211-220.
+ROADMAP item 7a (reading orbax directories the JAX package wrote); the
+sharded asynchronous checkpoints it stands for are ``dcp``. Reference CLI:
+model/train.py:211-220.
 """
 from __future__ import annotations
 
@@ -88,10 +93,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--zero-opt", action="store_true",
                    help="shard the optimizer state over the data axis (ZeRO-1)")
-    p.add_argument("--ckpt-format", choices=("torch", "msgpack", "orbax"), default="torch",
+    p.add_argument("--ckpt-format", choices=("torch", "msgpack", "dcp", "orbax"),
+                   default="torch",
                    help="'torch': checkpoint-{epoch}.pt via torch.save (the port's "
-                        "format); 'msgpack': the JAX package's flax msgpack; 'orbax' "
-                        "is not written yet")
+                        "format); 'msgpack': the JAX package's flax msgpack; 'dcp': "
+                        "sharded asynchronous checkpoint-{epoch}.dcp directories; "
+                        "'orbax' is refused (the JAX package's orbax directories "
+                        "need orbax)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
     return p

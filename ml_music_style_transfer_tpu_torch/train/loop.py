@@ -24,17 +24,18 @@ Reference model/train.py:125-208, on one card:
     ``train/optim.py``, on host-fed and resident steps alike; with none set
     the optimizer is ``torch.optim.Adam`` (fused on the card);
   - ReduceLROnPlateau on the test loss, best-on-test-loss checkpoints
-    (``checkpoint-{epoch}.pt``, or the JAX package's flax msgpack with
-    ``checkpoint_format="msgpack"``), the reference's hyperparams.json
-    contract, a ``metrics.jsonl`` stream and resume from the newest
-    checkpoint of either format. With ``ema_decay`` set, ``fit`` evaluates
-    the EMA weights, ranks epochs by them and checkpoints them as
+    (``checkpoint-{epoch}.pt``, the JAX package's flax msgpack with
+    ``checkpoint_format="msgpack"``, or a sharded asynchronous
+    ``checkpoint-{epoch}.dcp`` with ``"dcp"``), the reference's
+    hyperparams.json contract, a ``metrics.jsonl`` stream and resume from
+    the newest checkpoint of any format. With ``ema_decay`` set, ``fit``
+    evaluates the EMA weights, ranks epochs by them and checkpoints them as
     ``ema_params`` beside ``params``.
 
 Unlike the JAX Trainer, which threads (params, opt_state) through pure
 jitted steps, this one holds the model and optimizer and updates them in
 place. ``init_state`` (or ``fit``) builds both; the other methods use them.
-Orbax checkpoints raise ``NotImplementedError``.
+The JAX package's orbax directories raise ``NotImplementedError``.
 
 On a mesh (``mesh=``, or ``TrainConfig.mesh_shape`` other than (1, 1),
 built over the launch's ranks by ``parallel/mesh.make_mesh``) each rank
@@ -51,9 +52,12 @@ the batch axes ``data``, or ``dcn`` x ``data``):
     nothing (one device, as the JAX Trainer's 1-wide data axis);
   - dropout: data rank d draws with ``dropout.fold_seed(seed, d)``, so the
     masks differ across data ranks while rank 0 draws one device's masks;
-  - checkpoints hold whole tensors: saving gathers the TP slices and the
-    ZeRO slices of the optimizer state (every rank takes part, rank 0
-    writes), and a resume gives each rank its slices again;
+  - ``.pt`` and ``.msgpack`` checkpoints hold whole tensors: saving
+    gathers the TP slices and the ZeRO slices of the optimizer state
+    (every rank takes part, rank 0 writes), and a resume gives each rank
+    its slices again. A ``.dcp`` gathers nothing: each rank writes the
+    slices it holds (``sharded_state_dict``) and a resume reads only them
+    (``load_sharded_state``);
   - the device-resident store is replicated or sharded over the data axis
     (``store_sharding``; ``DeviceDataStore.local_batch``).
 """
@@ -69,6 +73,7 @@ from typing import Iterator
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..compat import weights
 from ..config import ModelConfig, TrainConfig
@@ -236,6 +241,61 @@ class Trainer:
         if self.cfg.ema_decay is not None:
             state["ema_params"] = weights.to_jax_params(self.ema_state_dict())
         return state
+
+    def _local_opt(self):
+        """The optimizer that holds this rank's state: ZeRO's inner one."""
+        return self.optimizer.inner if isinstance(self.optimizer, optim.ZeroOptimizer) \
+            else self.optimizer
+
+    def sharded_state_dict(self, epoch: int) -> dict:
+        """``state_dict``'s keys and layout with this rank's own tensors (its
+        TP slices, its ZeRO slices of the optimizer state), which share the
+        live ones: no collective. On a mesh each is a DTensor on
+        ``parallel/mesh.checkpoint_mesh`` that places it in the whole
+        tensor; with no mesh they are the whole tensors."""
+        names = self._names()
+        state = {"params": self.model.state_dict(),
+                 "opt_state": optim.export_state(self._local_opt(), names),
+                 "epoch": epoch, "scheduler": self.scheduler.state_dict()}
+        if self.cfg.ema_decay is not None:
+            state["ema_params"] = dict(zip(names, optim.get_param_ema(self._local_opt())))
+        if self.mesh is None:
+            return state
+        cmesh = pmesh.checkpoint_mesh(self.mesh)
+        tp = self.model.tp_dims()
+        zero = (dict(zip(names, self.optimizer.dims))
+                if isinstance(self.optimizer, optim.ZeroOptimizer) else {})
+
+        def place(tensors: dict, sliced: bool) -> dict:
+            return {k: DTensor.from_local(
+                v, cmesh, pmesh.placements(cmesh, tp.get(k), zero.get(k) if sliced else None),
+                run_check=False) for k, v in tensors.items()}
+
+        state["params"] = place(state["params"], False)
+        state["opt_state"] = {k: place(v, True) if k in ("mu", "nu", "ema", "acc")
+                              and v is not None else v
+                              for k, v in state["opt_state"].items()}
+        if "ema_params" in state:
+            state["ema_params"] = place(state["ema_params"], True)
+        return state
+
+    def load_sharded_state(self, path: str) -> int:
+        """Restore a ``.dcp`` (``sharded_state_dict``'s layout, written on
+        any mesh) into this Trainer's own placement: each rank reads only
+        its slices. On a mesh every rank calls it. Returns the epoch."""
+        def empty(v):
+            if isinstance(v, DTensor):
+                return DTensor.from_local(torch.empty_like(v.to_local()), v.device_mesh,
+                                          v.placements, run_check=False)
+            return torch.empty_like(v) if isinstance(v, torch.Tensor) else v
+
+        template = ckpt.tree_map(empty, self.sharded_state_dict(0))
+        state = ckpt.tree_map(lambda v: v.to_local() if isinstance(v, DTensor) else v,
+                               ckpt.restore_checkpoint_sharded(path, template))
+        self.model.load_state_dict(state["params"])
+        optim.import_state(self._local_opt(), state["opt_state"], self._names())
+        self.scheduler.load_state_dict(state["scheduler"])
+        return state["epoch"]
 
     def load_state(self, state: dict) -> None:
         """Load a ``state_dict`` (from a .pt) or a JAX-layout state (from a
@@ -460,15 +520,20 @@ class Trainer:
         Every rank of a mesh reads the data; rank 0 writes the experiment
         directory, its logs and the checkpoints.
 
-        ``checkpoint_format``: "torch" (``checkpoint-{epoch}.pt``) or
-        "msgpack" (the JAX package's format, ``jax_state_dict``); "orbax"
-        raises. With ``ema_decay`` set the EMA weights are evaluated,
-        ranked and written as ``ema_params``.
+        ``checkpoint_format``: "torch" (``checkpoint-{epoch}.pt``),
+        "msgpack" (the JAX package's format, ``jax_state_dict``) or "dcp"
+        (``checkpoint-{epoch}.dcp``, ``sharded_state_dict``: written in the
+        background while training goes on, each rank its own slices, from
+        page-locked host buffers the run reuses and frees when it ends; the
+        next save and the end of ``fit`` join the write); "orbax" raises.
+        A resume restores a ``.dcp`` into this Trainer's placement. With
+        ``ema_decay`` set the EMA weights are evaluated, ranked and written
+        as ``ema_params``.
         """
         check_placement(store_sharding)
         if checkpoint_format == "orbax":
             raise NotImplementedError(f"checkpoint_format='orbax' waits for {ckpt.ORBAX_ITEM}")
-        if checkpoint_format not in ckpt.FORMATS:
+        if checkpoint_format not in (*ckpt.FORMATS, "dcp"):
             raise ValueError(f"unknown checkpoint_format {checkpoint_format!r}")
         if self.is_main:
             os.makedirs(self.exp_root, exist_ok=True)
@@ -519,15 +584,19 @@ class Trainer:
             latest = ckpt.latest_checkpoint(self.exp_dir)
             if latest is not None:
                 path = latest[0]
-                state = ckpt.restore_checkpoint(path, self.device)
-                self.load_state(state)
+                if path.endswith(".dcp"):
+                    start_epoch = self.load_sharded_state(path)
+                else:
+                    state = ckpt.restore_checkpoint(path, self.device)
+                    self.load_state(state)
+                    start_epoch = state["epoch"]
                 exp = ckpt.ExperimentState.load(self.exp_dir)
-                start_epoch = state["epoch"]
                 print(f"resumed from {path} at epoch {start_epoch}")
 
         self.dropout_gen = torch.Generator().manual_seed(self.cfg.seed)
         metrics = MetricsLogger(os.path.join(self.exp_dir, "metrics.jsonl")
                                 if self.is_main else None)
+        staging: dict = {}  # host buffers of the .dcp saves, reused for the run
         print("start training")
         for epoch in range(start_epoch, self.cfg.epochs):
             t_epoch = time.time()
@@ -557,15 +626,24 @@ class Trainer:
                 metrics.log("eval", epoch=epoch, test_loss=test_loss, lr=self.scheduler.lr)
                 if test_loss < exp.best_loss:
                     print("saving model")
-                    state = (self.jax_state_dict(epoch + 1) if checkpoint_format == "msgpack"
-                             else self.state_dict(epoch + 1))
-                    if self.is_main:
-                        ckpt.save_checkpoint(self.exp_dir, epoch + 1, state, checkpoint_format)
+                    if checkpoint_format == "dcp":  # every rank, its own slices
+                        ckpt.save_checkpoint_sharded(self.exp_dir, epoch + 1,
+                                                     self.sharded_state_dict(epoch + 1),
+                                                     buffers=staging)
+                    else:
+                        state = (self.jax_state_dict(epoch + 1) if checkpoint_format == "msgpack"
+                                 else self.state_dict(epoch + 1))
+                        if self.is_main:
+                            ckpt.save_checkpoint(self.exp_dir, epoch + 1, state,
+                                                 checkpoint_format)
                     exp.best_loss = test_loss
                     exp.best_epoch = epoch + 1
                     if self.is_main:
                         exp.save(self.exp_dir)
                     metrics.log("checkpoint", epoch=epoch + 1, best_loss=test_loss)
+        if checkpoint_format == "dcp":
+            ckpt.wait_for_async_saves()
+            staging.clear()  # the run's page-locked copy of the state
         metrics.close()
         if self.mesh is not None:
             dist.barrier()  # the checkpoints are written before any rank returns

@@ -334,3 +334,98 @@ def _daemon(rank, mesh, clip_dir):
         full, mesh, axis_name="data", n_iter=2, hop_length=hp.ws, clip_max=hp.clip_log_power_max,
         halo=8, seed=0, rounds=2))[:spec.shape[0] * hp.ws]
     return out
+
+
+# ---- sharded checkpoints -------------------------------------------------------
+
+def _tree_np(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    return _np(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def sharded_checkpoints(rank, batch, tmp, h5):
+    """A ZeRO-1 + TP trainer with an EMA on a (2, 2) mesh saves a ``.dcp``
+    and takes a step while the write goes on. Returns what the test
+    compares: the whole state at the save, the gathers made while saving,
+    the whole states restored into a fresh trainer of the same mesh and of
+    a (4, 1) mesh, the continuation steps of the saved and the restored
+    trainer, and a ZeRO-1 ``fit`` -> resume from ``.dcp``."""
+    from ml_music_style_transfer_tpu_torch.parallel import comm
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    cfg = ModelConfig(**TINY_KW)
+    kw = dict(batch_size=len(batch["weight"]), zero_opt=True, ema_decay=0.9)
+    mesh = pmesh.make_mesh(2, 2, device="cpu")
+    tr = Trainer(cfg, TrainConfig(**kw), device="cpu", mesh=mesh)
+    tr.init_state(0)
+    _train(tr, batch, 1)
+    out = {"want": _tree_np(tr.state_dict(1))}  # whole, gathered before the save
+    gathers = []
+    real = comm.all_gather_cat
+
+    def spy(x, group, dim):
+        gathers.append(tuple(x.shape))
+        return real(x, group, dim)
+
+    comm.all_gather_cat = spy
+    try:
+        path = ckpt.save_checkpoint_sharded(tmp, 1, tr.sharded_state_dict(1))
+    finally:
+        comm.all_gather_cat = real
+    out["save_gathers"] = gathers
+    out["moment_bytes"] = _moment_bytes(tr.optimizer)
+    out["flush_step_loss"] = _train(tr, batch, 1)[0]  # in place, during the write
+    ckpt.wait_for_async_saves()
+    out["next_params"] = _state_np(tr.model.full_state_dict())
+    for name, shape in (("same_mesh", (2, 2)), ("other_mesh", (4, 1))):
+        m = mesh if shape == (2, 2) else pmesh.make_mesh(*shape, device="cpu")
+        t2 = Trainer(cfg, TrainConfig(**kw), device="cpu", mesh=m)
+        t2.init_state(1)
+        res = {"epoch": t2.load_sharded_state(path), "state": _tree_np(t2.state_dict(1))}
+        res["step_loss"] = _train(t2, batch, 1)[0]
+        res["next_params"] = _state_np(t2.model.full_state_dict())
+        out[name] = res
+    if rank == 0:
+        out["files"] = {f: os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)}
+    out["fit"] = _zero_fit_resume(rank, cfg, mesh, h5, os.path.join(tmp, "exp"))
+    return out
+
+
+def _zero_fit_resume(rank, cfg, mesh, h5, exp_root):
+    """``fit`` one epoch with ZeRO-1 and ``"dcp"``, then resume it for a
+    second: the optimizer state at the resumed epoch's start, gathered
+    whole, against the checkpoint's."""
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    def tcfg(epochs):
+        return TrainConfig(epochs=epochs, test_freq=1, exp_name="zfit", batch_size=2,
+                           zero_opt=True)
+
+    Trainer(cfg, tcfg(1), exp_root=exp_root, device="cpu", mesh=mesh).fit(
+        h5, checkpoint_format="dcp")
+    seen = {}
+    tr = Trainer(cfg, tcfg(2), exp_root=exp_root, device="cpu", mesh=mesh)
+    real = tr.train_epoch
+
+    def spy(*a, **k):
+        if not seen:
+            seen["opt"] = _tree_np(tr._opt_state())
+            seen["moment_bytes"] = _moment_bytes(tr.optimizer)
+        return real(*a, **k)
+
+    tr.train_epoch = spy
+    _, exp = tr.fit(h5, resume=True, checkpoint_format="dcp")
+    exp_dir = os.path.join(exp_root, "zfit")
+    path, epoch = ckpt.latest_checkpoint(exp_dir)
+    out = {"loss_history": exp.loss_history, "latest": os.path.basename(path),
+           "moment_bytes": seen["moment_bytes"]}
+    if rank == 0:
+        first = ckpt.restore_checkpoint(ckpt.checkpoint_path(exp_dir, 1, "dcp"))
+        out["resumed_opt_equal"] = all(
+            np.array_equal(seen["opt"][key][n], _np(first["opt_state"][key][n]))
+            for key in ("mu", "nu") for n in first["opt_state"][key])
+        out["listing"] = sorted(os.listdir(exp_dir))
+    return out
