@@ -13,7 +13,8 @@ scipy and the standard library. Phases, each reported on its own lines:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is switched off for every float32 comparison below;
-  2. build: compile the CUDA kernels from ``ml_music_style_transfer_tpu_torch/csrc``;
+  2. build: compile the CUDA kernels from ``ml_music_style_transfer_tpu_torch/csrc``
+     and the operator library that registers them (``csrc/mmst_ops.cpp``);
   3. glue kernels vs plain: the Griffin-Lim glue kernels against their
      plain PyTorch versions on the card at nf = 100 and at the 30 s serving
      shape nf = 5160 (max abs error <= 1e-4), rfft(glue(irfft S)) against
@@ -123,8 +124,21 @@ scipy and the standard library. Phases, each reported on its own lines:
      model's, Griffin-Lim and serving within 1e-4 of the peak of
      ``gl_steps`` and ``synthesize_waveform`` from the same initial phase,
      each program run launching each glue kernel 300 times (its glue is
-     the ``mmst_torch`` operators); the Griffin-Lim program once more in a
-     fresh process;
+     the ``mmst_torch`` operators, its loop one ``while_loop``); the
+     Griffin-Lim program once more in a fresh process;
+  17b. AOTInductor packages (``aoti_phase``): phase 17's Griffin-Lim
+     program and its forward and serving programs exported at float32,
+     compiled on the card while phase 17 runs (seconds, package bytes);
+     Griffin-Lim and serving run by the C++ runner (``csrc/aoti_runner.cpp``,
+     no libpython), the forward by ``compat/aoti_load.py`` in a Python that
+     imports torch alone; each held to its live path at phase 17's
+     tolerances or tighter (Griffin-Lim and serving at 2 iterations, their
+     ``n_iter`` input; at 300 by spectral convergence), each bound shown to
+     refuse a wrong result of the same run; 300 launches of each glue
+     kernel per run read from the operator library's C++ counters; each
+     package's warm run against the exported program's and the live
+     path's; device kernels per Griffin-Lim iteration (profiler) of the
+     package and the live path;
   18. support code: ``device_trace`` of a warm request names both glue
      kernels and its ``trace_annotation`` span; ``StepTimer`` within 5 %
      of CUDA events on the full-width train step (batch 16); two steps
@@ -180,7 +194,7 @@ scipy and the standard library. Phases, each reported on its own lines:
      glue kernel); a (1, 1) mesh ``Trainer`` with ZeRO-1 on a NCCL group of
      one restores the ``.dcp``, saves its own, and a fresh one resumes it
      with the next step bit-identical; the native WAV decoder against scipy
-     (within 1e-6; ms) and the daemon's requests/s with each (100 requests
+     (within 1e-6; ms) and the daemon's requests/s with each (60 requests
      per decoder with 30 s stereo timbres at 44.1 and 48 kHz); then
      ``scripts/profile_step.py`` and ``profile_gl.py`` at reduced counts;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
@@ -197,11 +211,14 @@ scipy and the standard library. Phases, each reported on its own lines:
 
 Lines starting ``metric`` carry the serving system's numbers under the
 names ``scripts/bench_inference.py`` prints, and the train step's under
-``scripts/bench_train.py``'s. The glue kernels' ``launches`` in the
-kernels' JSON record sum their counts over phases 4, 6-9, 15 (three
-requests), 17 (the programs and the live runs they are held to), 18, 19
-(the soak), 20 (sharded Griffin-Lim, two whole clips and two bulk
-clips) and 21 (three requests, 200 daemon requests), the dropout kernel's
+``scripts/bench_train.py``'s. Every launch count is read from the
+operator library's counters (``csrc/mmst_ops.cpp``), the runner's from its
+own process. The glue kernels' ``launches`` in the kernels' JSON record sum
+their counts over phases 4, 6-9, 15 (three requests), 17 (the programs and
+the live runs they are held to), 17b (the packages' runs, the timing and
+profiled runs), 18, 19 (the soak), 20 (sharded Griffin-Lim, two whole
+clips and two bulk clips) and 21 (three requests, 120 daemon requests),
+the dropout kernel's
 over phases 11 (12 steps), 13 (the resident epoch and the evaluation), 14
 (12 steps), 15 (4 microbatch calls and 24 timed steps), 18 (8 steps, 2 of
 them NaN-debugged), 20 (the mesh step) and 21 (the steps around the
@@ -214,6 +231,7 @@ without a card the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -1460,7 +1478,7 @@ def _fresh_process_program(torch, path: str, inputs_path: str, out_path: str) ->
         "with torch.inference_mode():",
         "    y = load_artifact(sys.argv[1]).module()(*args)",
         "torch.save(y.cpu(), sys.argv[3])",
-        "print(json.dumps(gl_glue.LAUNCHES))"])
+        "print(json.dumps(dict(gl_glue.LAUNCHES)))"])
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code, path, inputs_path, out_path],
                          capture_output=True, text=True, timeout=600, env=env)
@@ -1494,6 +1512,13 @@ def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
     paths = pe.write_artifacts(out_dir, cfg, device=cuda)
     with open(paths["manifest"]) as f:
         seconds = json.load(f)["export_seconds"]
+    params = pe.program_params(state, cfg)
+    rng = np.random.default_rng(17)  # the forward's seeded inputs
+    midi = torch.from_numpy((rng.random((1, 860, 128)) < 0.05).astype(np.float32)).cuda()
+    cond = torch.from_numpy(rng.random((1, 860, 1025), dtype=np.float32) * 8.0).cuda()
+    onoff = torch.from_numpy(rng.integers(-1, 2, (1, 860, 128)).astype(np.float32)).cuda()
+    compiling = start_package_compiles(torch, pe, paths, cfg, cuda, tmp,
+                                       (params, midi, cond, onoff))
     programs = {}
     for name in ("forward", "griffinlim", "serving"):
         t = time.perf_counter()
@@ -1508,17 +1533,14 @@ def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
         check(not ep.state_dict and not ep.graph_signature.parameters,
               f"export: the {name} program holds parameters")
         programs[name] = ep.module()
-    gl_nodes = sum(n.target == torch.ops.mmst_torch.gl_ola_nola.default
-                   for n in pe.load_artifact(paths["griffinlim"]).graph.nodes)
-    check(gl_nodes == N_ITER, f"export: {gl_nodes} gl_ola_nola nodes in the Griffin-Lim program")
-    params = pe.program_params(state, cfg)
+    bodies = pe.loop_bodies(pe.load_artifact(paths["griffinlim"]))
+    gl_nodes = [sum(n.target == torch.ops.mmst_torch.gl_ola_nola.default for n in b.graph.nodes)
+                for b in bodies]
+    check(gl_nodes == [1], f"export: gl_ola_nola nodes in the Griffin-Lim program's loop "
+          f"bodies: {gl_nodes}, expected one loop of one")
     n = 0
 
     # forward against the live model on seeded inputs
-    rng = np.random.default_rng(17)
-    midi = torch.from_numpy((rng.random((1, 860, 128)) < 0.05).astype(np.float32)).cuda()
-    cond = torch.from_numpy(rng.random((1, 860, 1025), dtype=np.float32) * 8.0).cuda()
-    onoff = torch.from_numpy(rng.integers(-1, 2, (1, 860, 128)).astype(np.float32)).cuda()
     model = synth_mod.build_model(cfg, state, cuda)
     with torch.inference_mode():
         got = programs["forward"](params, midi, cond, onoff)
@@ -1539,13 +1561,13 @@ def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
     with torch.inference_mode():
         glue.reset_launches()
         t = time.perf_counter()
-        y_prog = programs["griffinlim"](spec, phase)
+        y_prog = programs["griffinlim"](spec, phase, pe.iterations(N_ITER))
         torch.cuda.synchronize()
         prog_s = time.perf_counter() - t
         n += counted(glue, N_ITER, "griffinlim program")
         glue.reset_launches()
-        y_live = tgl.griffinlim(tstft.inverse_log_power(spec), init_phase=phase, n_iter=N_ITER,
-                                device=cuda)
+        y_live = y_live_gl = tgl.griffinlim(tstft.inverse_log_power(spec), init_phase=phase,
+                                            n_iter=N_ITER, device=cuda)
         n += counted(glue, N_ITER, "griffinlim live")
     err = float((y_prog - y_live).abs().max() / y_live.abs().max())
     print(f"export: griffinlim program (860 frames, 300 iters, {prog_s:.3f} s) vs gl_steps: "
@@ -1554,7 +1576,7 @@ def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
     check(y_prog.shape == y_live.shape and err <= GL_PROGRAM_TOL,
           "export: the Griffin-Lim program disagrees with gl_steps")
     inputs_path, out_path = os.path.join(tmp, "gl_inputs.pt"), os.path.join(tmp, "gl_out.pt")
-    torch.save((spec, phase), inputs_path)
+    torch.save((spec, phase, pe.iterations(N_ITER)), inputs_path)
     t = time.perf_counter()
     fresh = _fresh_process_program(torch, paths["griffinlim"], inputs_path, out_path)
     y_fresh = torch.load(out_path)
@@ -1588,7 +1610,8 @@ def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
             torch.tensor(list(starts) + [0] * pad, device=cuda),
             torch.tensor(cst + [0] * pad, device=cuda),
             torch.tensor([1.0] * roll.shape[0] + [0.0] * pad, device=cuda),
-            torch.tensor(t_total, device=cuda), pe.init_phase((1025, l_out), 0).cuda())
+            torch.tensor(t_total, device=cuda), pe.init_phase((1025, l_out), 0).cuda(),
+            pe.iterations(N_ITER))
     glue.reset_launches()
     with torch.inference_mode():
         t = time.perf_counter()
@@ -1603,7 +1626,293 @@ def export_phase(torch, glue, tstft, binf, state, cfg, tmp) -> int:
           f"max_abs_err/peak={err:.3e} (tolerance {GL_PROGRAM_TOL}), bit-equal="
           f"{np.array_equal(y_prog, y_live)}")
     check(err <= GL_PROGRAM_TOL, "export: the serving program disagrees with the serving path")
-    del programs, args, params
+    del programs
+    ref = {"paths": paths, "forward": ((params, midi, cond, onoff), want),
+           "griffinlim": ((spec, phase, pe.iterations(N_ITER)), y_live_gl),
+           "serving": (args, y_live), "t_total": t_total, "synth": synth,
+           "request": (midi_p, wav_p), "compiling": compiling}
+    return n, ref
+
+
+# ---- phase 17b: AOTInductor packages, run without the port ------------------------
+
+AOTI_RUNS = 3  # package runs per process: the first is cold, the others warm
+# Each package runs twice: at AOTI_CHECK_ITERS Griffin-Lim iterations, held
+# to the live path elementwise, and at N_ITER, the serving count (launches,
+# times). 300 momentum iterations grow any rounding difference to ~1e-3 of
+# the peak, so there the waveform is held by its spectral convergence.
+AOTI_CHECK_ITERS = 2
+AOTI_GL_TOL = 1e-5  # of the peak, at AOTI_CHECK_ITERS (PERF.md §6: readings ~1e-6)
+AOTI_GL_SC = 1.001  # at N_ITER: x the live waveform's spectral convergence
+AOTI_SERVING_SC = 1.01  # at N_ITER: x the live float32 serving waveform's
+
+
+def start_package_compiles(torch, pe, paths: dict, cfg, cuda, tmp, fwd_args) -> dict:
+    """Phase 17b's packages, compiled while phase 17 checks its programs:
+    phase 17's Griffin-Lim program, and the forward and serving programs
+    exported again at float32 (``compute_dtype``), where compiled code and
+    the live path can be held to phase 17's tolerances (Inductor's fusions
+    round bfloat16 elsewhere than the live path); the C++ runner builds
+    beside them. Once compiled, the forward package runs on ``fwd_args`` by
+    ``aoti_load.py`` (its process takes ~30 s to start) while phase 17b
+    checks the others. Returns ``{"threads", "result", "paths32",
+    "cfg32"}``; ``result`` gets the packages, the runner and the forward's
+    run, or the error."""
+    import threading
+
+    from ml_music_style_transfer_tpu_torch.ops.kernels import _build
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out_dir = os.path.join(tmp, "programs32")
+    os.makedirs(out_dir, exist_ok=True)
+    paths32 = {}
+    for name, export in (("forward", lambda: pe.export_forward(cfg32, device=cuda)),
+                         ("serving", lambda: pe.export_serving(cfg32, device=cuda))):
+        t = time.perf_counter()
+        paths32[name] = os.path.join(out_dir, f"{name}.pt2")
+        torch.export.save(export(), paths32[name])
+        print(f"aoti: {name} program exported at float32 in {time.perf_counter() - t:.2f} s")
+    result: dict = {}
+
+    def timed_into(key, fn):
+        t = time.perf_counter()
+        try:
+            result[key] = fn()
+        except Exception as e:  # reported by aoti_phase
+            result["error"] = e
+        result[key + "_s"] = time.perf_counter() - t
+
+    def packages_then_forward():
+        timed_into("packages", lambda: pe.compile_saved(
+            {"griffinlim": paths["griffinlim"], **paths32}, os.path.join(tmp, "packages")))
+        if "error" not in result:
+            inputs = os.path.join(tmp, "forward_in.pt")
+            pe.save_flat_inputs(inputs, *fwd_args)
+            timed_into("forward_run", lambda: pe.run_package(
+                result["packages"]["forward"][0], inputs, os.path.join(tmp, "forward_out.pt"),
+                runs=AOTI_RUNS, runner=False))
+
+    threads = [threading.Thread(target=packages_then_forward),
+               threading.Thread(target=timed_into, args=("runner", _build.build_runner))]
+    for thread in threads:
+        thread.start()
+    return {"threads": threads, "result": result, "paths32": paths32, "cfg32": cfg32}
+
+
+def _warm_s(torch, fn, runs: int = 2) -> float:
+    """Seconds of the last of ``runs`` calls of ``fn``, each ended by a sync."""
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _kernels_per_run(torch, fn) -> int:
+    """Device kernels one call of ``fn`` launches, from a torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def _of_peak(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def aoti_phase(torch, glue, tstft, ref, state, tmp) -> int:
+    """Phase 17b: the packages ``start_package_compiles`` compiled on the
+    card (seconds, package bytes), run without the port: Griffin-Lim and
+    serving by the C++ runner (``csrc/aoti_runner.cpp``, ``ldd`` without
+    libpython), the forward by ``compat/aoti_load.py`` in a Python process
+    that imports torch alone (both with TF32 off, as this process). Each is
+    held to its live path from the same weights and phase at phase 17's
+    tolerances or tighter, and each bound is shown to refuse a wrong result
+    measured in this run:
+      - Griffin-Lim at ``AOTI_CHECK_ITERS`` iterations (the package's
+        ``n_iter`` input) within ``AOTI_GL_TOL`` of the peak (wrong: the
+        live path one iteration short); at 300, 300 launches of each glue
+        kernel per run (the library's C++ counters) and a spectral
+        convergence within ``AOTI_GL_SC`` times the live waveform's;
+      - serving (float32) at ``AOTI_CHECK_ITERS`` within ``GL_PROGRAM_TOL``
+        of the peak of ``synthesize_waveform`` (wrong: the bfloat16 serving
+        path); at 300, 300 launches per run and a spectral convergence
+        within ``AOTI_SERVING_SC`` times the live waveform's;
+      - the forward (float32) within ``FORWARD_TOL`` of each element plus
+        ``FORWARD_TOL`` of the peak of the live model (wrong: the bfloat16
+        forward).
+    Then each package's warm run against the ``torch.export`` program's and
+    the live path's, and the device kernels per Griffin-Lim iteration in a
+    profiler trace of the package and of the live path. Returns the glue
+    launches per kernel (the runner's included)."""
+    from ml_music_style_transfer_tpu_torch.compat import program_export as pe
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+
+    cuda = torch.device("cuda")
+    compiling, n = ref["compiling"], 0
+    print(f"aoti: Inductor options {pe.eager_numerics_configs()}")
+    t = time.perf_counter()
+    result = compiling["result"]
+    compiling["threads"][1].join()
+    while "packages_s" not in result and compiling["threads"][0].is_alive():
+        time.sleep(0.5)
+    check("error" not in result, f"aoti: {result.get('error')}")
+    ldd = subprocess.run(["ldd", result["runner"]], capture_output=True, text=True).stdout
+    print(f"aoti: runner built in {result['runner_s']:.1f} s beside the compiles; libpython "
+          f"linked: {'libpython' in ldd}")
+    check("libpython" not in ldd and "libmmst_ops" in ldd,
+          f"aoti: the runner links libpython or not the operator library:\n{ldd}")
+    pkgs = {}
+    for name, (package, secs) in result["packages"].items():
+        pkgs[name] = package
+        print(f"aoti: {name} package compiled on the card in {secs:.1f} s (its own process), "
+              f"{os.path.getsize(package)} bytes", flush=True)
+    print(f"aoti: the three compiles side by side took {result['packages_s']:.1f} s (waited "
+          f"{time.perf_counter() - t:.1f} s for them here)")
+
+    def run(name: str, args, n_iter: int, runs: int, runner: bool = True):
+        """The package run in a new process on ``args`` (its ``n_iter``
+        input set), or for the forward the run ``start_package_compiles``
+        made; returns its output on the card."""
+        if name == "forward":
+            compiling["threads"][0].join()
+            check("error" not in result, f"aoti: {result.get('error')}")
+            rep, out = result["forward_run"], os.path.join(tmp, "forward_out.pt")
+            print(f"aoti: forward package run by aoti_load.py beside the checks above "
+                  f"({result['forward_run_s']:.1f} s with its process's start-up)")
+        else:
+            inputs = os.path.join(tmp, f"{name}_{n_iter}_in.pt")
+            out = os.path.join(tmp, f"{name}_{n_iter}_out.pt")
+            pe.save_flat_inputs(inputs, *args[:-1], pe.iterations(n_iter))
+            rep = pe.run_package(pkgs[name], inputs, out, runs=runs, runner=runner)
+        check(rep["device"] == "cuda", f"aoti: the {name} package ran on {rep['device']}")
+        others = {k: v for k, v in rep["launches"].items() if k not in glue.LAUNCHES
+                  and any(v["cuda"] + v["cpu"])}
+        glue_runs = [rep["launches"][k]["cuda"] for k in glue.LAUNCHES]
+        per_run = 0 if name == "forward" else n_iter
+        print(f"aoti: {name} package by {'the C++ runner' if runner else 'aoti_load.py'} at "
+              f"n_iter {n_iter}: load {rep['load_s']:.2f} s, runs "
+              f"{[round(x, 4) for x in rep['run_s']]} s, glue launches per run {glue_runs} "
+              f"(C++ counters)", flush=True)
+        check(all(r == [per_run] * runs for r in glue_runs) and not others,
+              f"aoti: {name} package launches {rep['launches']}")
+        if runs > 1:
+            ref[name + "_package_s"] = min(rep["run_s"][1:])
+        if not runner:
+            check(not rep["repo_modules"], "aoti: the loader's process imported the port: "
+                  f"{rep['repo_modules']}")
+        return torch.load(out)[0].cuda(), per_run * runs
+
+    # Griffin-Lim: phase 17's program (float32 throughout)
+    gl_args, gl_want = ref["griffinlim"]
+    spec, phase = gl_args[:2]
+    mag = tstft.inverse_log_power(spec)
+    glue.reset_launches()
+    with torch.inference_mode():
+        short = [tgl.griffinlim(mag, init_phase=phase, n_iter=k, device=cuda)
+                 for k in (AOTI_CHECK_ITERS - 1, AOTI_CHECK_ITERS)]
+    n += counted(glue, 2 * AOTI_CHECK_ITERS - 1, "aoti: live Griffin-Lim, short")
+    got, k = run("griffinlim", gl_args, AOTI_CHECK_ITERS, 1)
+    n += k
+    err, wrong = _of_peak(got, short[1]), _of_peak(short[0], short[1])
+    print(f"aoti: griffinlim package at n_iter {AOTI_CHECK_ITERS} vs the live path: "
+          f"max_abs_err/peak={err:.3e} (bound {AOTI_GL_TOL}; the live path one iteration short: "
+          f"{wrong:.3e})", flush=True)
+    check(got.shape == short[1].shape and err <= AOTI_GL_TOL < wrong,
+          "aoti: the griffinlim package disagrees with the live path")
+    got, k = run("griffinlim", gl_args, N_ITER, AOTI_RUNS)
+    n += k
+    sc = [spectral_convergence(torch, tstft, y, mag) for y in (got, gl_want, short[1])]
+    print(f"aoti: griffinlim package at n_iter {N_ITER}: spectral convergence {sc[0]:.6f}, live "
+          f"{sc[1]:.6f} (bound {AOTI_GL_SC} x; {AOTI_CHECK_ITERS} iterations: {sc[2]:.6f}); "
+          f"max_abs_err/peak vs the live path {_of_peak(got, gl_want):.3e}", flush=True)
+    check(sc[0] <= AOTI_GL_SC * sc[1] < sc[2],
+          "aoti: the griffinlim package synthesises worse than the live path")
+
+    # serving at float32: the live path is AudioSynthesizer on the same request
+    cfg32, t_total = compiling["cfg32"], ref["t_total"]
+    midi_p, wav_p = ref["request"]
+    synth32 = synth_mod.AudioSynthesizer(tmp, midi_p, wav_p, model_cfg=cfg32, params=state,
+                                         device=cuda)
+    s_args = ref["serving"][0]
+    glue.reset_launches()
+    live32 = {k: torch.from_numpy(synth32.synthesize_waveform(n_iter=k)).cuda()
+              for k in (AOTI_CHECK_ITERS, N_ITER)}
+    bf16 = torch.from_numpy(ref["synth"].synthesize_waveform(n_iter=AOTI_CHECK_ITERS)).cuda()
+    n += counted(glue, 2 * AOTI_CHECK_ITERS + N_ITER, "aoti: live serving")
+    got, k = run("serving", s_args, AOTI_CHECK_ITERS, 1)
+    n += k
+    got = got[: t_total * 256]
+    err, wrong = _of_peak(got, live32[AOTI_CHECK_ITERS]), _of_peak(bf16, live32[AOTI_CHECK_ITERS])
+    print(f"aoti: serving package (float32) at n_iter {AOTI_CHECK_ITERS} vs "
+          f"AudioSynthesizer.synthesize_waveform: max_abs_err/peak={err:.3e} (bound "
+          f"{GL_PROGRAM_TOL}; the bfloat16 serving path: {wrong:.3e})", flush=True)
+    check(got.shape == live32[AOTI_CHECK_ITERS].shape and err <= GL_PROGRAM_TOL < wrong,
+          "aoti: the serving package disagrees with the serving path")
+    with torch.inference_mode():
+        target = pe.serving_magnitude_fn(cfg32, 8)(*s_args[:-2])[:, :t_total]
+    got, k = run("serving", s_args, N_ITER, AOTI_RUNS)
+    n += k
+    got = got[: t_total * 256]
+    sc = [spectral_convergence(torch, tstft, y, target)
+          for y in (got, live32[N_ITER], live32[AOTI_CHECK_ITERS])]
+    print(f"aoti: serving package at n_iter {N_ITER}: spectral convergence {sc[0]:.6f}, live "
+          f"{sc[1]:.6f} (bound {AOTI_SERVING_SC} x; {AOTI_CHECK_ITERS} iterations: {sc[2]:.6f}); "
+          f"max_abs_err/peak vs the live waveform {_of_peak(got, live32[N_ITER]):.3e}",
+          flush=True)
+    check(sc[0] <= AOTI_SERVING_SC * sc[1] < sc[2],
+          "aoti: the serving package synthesises worse than the live path")
+
+    # forward at float32, by aoti_load.py
+    fwd_args, want16 = ref["forward"]
+    model32 = synth_mod.build_model(cfg32, fwd_args[0], cuda)
+    with torch.inference_mode():
+        want = model32(*fwd_args[1:])
+    got, _ = run("forward", fwd_args, 0, AOTI_RUNS, runner=False)
+    peak = float(want.abs().max())
+    bound = FORWARD_TOL * (want.abs() + peak)
+    err, wrong = [float(((y - want).abs() / bound).max()) for y in (got, want16.float())]
+    print(f"aoti: forward package (float32) by aoti_load.py vs the live model: "
+          f"max_abs_err={float((got - want).abs().max()):.3e} on a peak of {peak:.3f}, "
+          f"{err:.3f} of the bound {FORWARD_TOL} of each element plus of the peak (the bfloat16 "
+          f"forward: {wrong:.3f} of it), relative L2 {_rel_l2([got], [want]):.3e}", flush=True)
+    check(got.shape == want.shape and err <= 1.0 < wrong,
+          "aoti: the forward package disagrees with the live model")
+
+    # warm runs: package (above) against the torch.export program and the live path
+    programs = {"griffinlim": pe.load_artifact(ref["paths"]["griffinlim"]).module(),
+                **{k: pe.load_artifact(p).module() for k, p in compiling["paths32"].items()}}
+    s_args = (*s_args[:-1], pe.iterations(N_ITER))
+    live = {"forward": lambda: model32(*fwd_args[1:]),
+            "griffinlim": lambda: tgl.griffinlim(mag, init_phase=phase, n_iter=N_ITER,
+                                                 device=cuda),
+            "serving": lambda: synth32.synthesize_waveform(n_iter=N_ITER)}
+    args = {"forward": fwd_args, "griffinlim": gl_args, "serving": s_args}
+    with torch.inference_mode():
+        for name in ("forward", "griffinlim", "serving"):
+            glue.reset_launches()
+            prog_s = _warm_s(torch, lambda: programs[name](*args[name]))
+            live_s = _warm_s(torch, live[name])
+            n += counted(glue, 0 if name == "forward" else 4 * N_ITER, f"aoti: {name} timing")
+            print(f"aoti: {name} warm run{'' if name == 'griffinlim' else ' (float32)'}: "
+                  f"package {ref[name + '_package_s']:.4f} s, torch.export program "
+                  f"{prog_s:.4f} s, live path {live_s:.4f} s", flush=True)
+        # device kernels per Griffin-Lim iteration: the package in this process, the live path
+        glue.reset_launches()
+        package = torch._inductor.aoti_load_package(pkgs["griffinlim"])
+        package(*gl_args)
+        per_pkg = _kernels_per_run(torch, lambda: package(*gl_args)) / N_ITER
+        per_live = _kernels_per_run(torch, live["griffinlim"]) / N_ITER
+        n += counted(glue, 3 * N_ITER, "aoti: profiled runs")
+    print(f"aoti: device kernels per Griffin-Lim iteration (860 frames, profiler, the istft "
+          f"included): package {per_pkg:.2f}, live path {per_live:.2f}")
+    del programs, model32, synth32, package
     return n
 
 
@@ -1622,7 +1931,6 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     written as a reference ``.tar``, read back bit-equal and served equal to
     the same weights from memory with ``compat_mbr_noop=True``. Returns
     (dropout launches, glue launches per kernel)."""
-    import dataclasses
 
     from ml_music_style_transfer_tpu_torch.compat.weights import (load_reference_checkpoint,
                                                                  save_reference_checkpoint)
@@ -1831,7 +2139,6 @@ def multidevice_phase(torch, dk, glue, binf, state, cfg, tmp):
     between them, the dropout and glue kernels at the shapes a mesh of two
     ranks gives them, against their plain versions. Returns (dropout
     launches, glue launches, the dropout masks' max |kernel - plain|)."""
-    import dataclasses
 
     import torch.distributed as dist
 
@@ -2153,7 +2460,7 @@ def mesh_glue_check(torch, glue, spec, t_total: int, cfg, hp, n: int = 2, halo: 
 # ---- phase 21: sharded asynchronous checkpoints, the WAV decoder, the profiles ---
 
 DECODER_RUN = 10  # daemon requests per timed run of one WAV decoder
-DECODER_ROUNDS = 5  # runs of each decoder at each depth, the decoders in turns
+DECODER_ROUNDS = 3  # runs of each decoder at each depth, the decoders in turns
 
 
 def _stored_bytes(path: str, key: str) -> int:
@@ -2246,7 +2553,7 @@ def checkpoint_phase(torch, dk, glue, binf, tmp):
     decoder against scipy (30 s stereo int16 at 44.1 kHz, and at 48 kHz
     resampled; max error and ms), the daemon's requests/s with each decoder
     (10 s songs, each with one of those two files as its timbre; runs of 10
-    requests, serial and pipelined, the decoders in turns, 100 requests per
+    requests, serial and pipelined, the decoders in turns, 60 requests per
     decoder, after two untimed requests);
     and the two profile scripts at reduced counts. Returns (dropout
     launches, glue launches)."""
@@ -2652,6 +2959,7 @@ def timed(name: str, fn, *args):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2754,7 +3062,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as tmp:
             if phase.startswith("17"):
-                gl_launches += timed(phase, export_phase, torch, glue, tstft, binf, state, cfg, tmp)
+                n, ref = timed(phase, export_phase, torch, glue, tstft, binf, state, cfg, tmp)
+                gl_launches += n + timed("17b (AOTInductor packages)", aoti_phase, torch, glue,
+                                         tstft, ref, state, tmp)
+                del ref
             elif phase.startswith("18"):
                 nan_dropout, support_gl = timed(phase, support_phase, torch, dk, glue, binf, state,
                                                 cfg, tmp)
@@ -2787,6 +3098,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     conv_launches, conv_err, conv_t = timed("12 (fused conv)", fused_conv_phase, torch, fc)
 
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s, the build included")
     kernels = []
     for name, src_line in (("gl_ola_nola", "ml_music_style_transfer_tpu/ops/pallas/gl_glue.py:95"),
                            ("gl_frame_window", "ml_music_style_transfer_tpu/ops/pallas/gl_glue.py:110")):

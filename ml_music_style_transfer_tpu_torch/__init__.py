@@ -8,9 +8,9 @@ mirror the JAX package so each counterpart is easy to find.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no card they raise instead of falling back.
 
-Importing the package registers the kernels' ``mmst_torch`` operators
-(``ops/kernels/gl_glue.py``, ``dropout.py``), which an exported ``.pt2``
-program names.
+The kernels' ``mmst_torch`` operators, which an exported ``.pt2`` program
+names, are defined in C++ (``csrc/mmst_ops.cpp``); ``ops.kernels.ops()``
+builds and loads them at first use.
 """
 from .ops import kernels as _kernels  # noqa: F401
 

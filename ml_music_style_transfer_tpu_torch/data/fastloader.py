@@ -55,6 +55,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the native assembler builds and loads on this machine (the
+    JAX package's ``available``). Nothing falls back on the answer: where
+    it is False, ``NativeBatchAssembler`` raises."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 class NativeBatchAssembler:
     """Slot-ring batch assembly over a ``ChunkDataset``'s in-RAM arrays."""
 

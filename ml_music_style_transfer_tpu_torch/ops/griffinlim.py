@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch._higher_order_ops.while_loop import while_loop
 
 from ..device import resolve_device
 from . import stft as _stft
@@ -60,7 +61,9 @@ def griffinlim(
     ``init_phase`` (radians, the magnitude's shape) is given. A batched
     (N, bins, frames) input runs clip by clip, as the JAX ``lax.map`` does.
     Returns (..., samples), ``hop_length * (n_frames - 1)`` long unless
-    ``length`` is given, on ``device``.
+    ``length`` is given, on ``device``. While ``torch.export`` traces,
+    ``n_iter`` may be a 0-d int64 host tensor, a program input
+    (``_iterate``).
     """
     transform = transform or "fft"
     if transform not in ("fft", "dft"):
@@ -82,11 +85,31 @@ def griffinlim(
         init_phase = 2.0 * np.pi * torch.rand(
             magnitude.shape, generator=generator, device=generator.device)
     init_phase = _as_tensor(init_phase, dev)
+    if transform == "fft" and use_pallas_glue:
+        # real end to end (no complex tensor but the FFTs' own): the form a
+        # compiler takes whole (AOTInductor on the card computes complex
+        # elementwise products and their fills wrongly)
+        _check_glue_shapes(magnitude, win_length, n_fft, length)
+        phase_t = init_phase.transpose(-1, -2)
+        ang = torch.stack([torch.cos(phase_t), torch.sin(phase_t)], dim=-1)
+        mag_t = magnitude.transpose(-1, -2).contiguous().unsqueeze(-1)
+        ang, _ = _gl_steps_real(mag_t, ang, torch.zeros_like(ang), n_iter, hop_length,
+                                momentum / (1.0 + momentum))
+        frames = torch.fft.irfft(torch.view_as_complex(mag_t * ang), n=n_fft, dim=-1)
+        return _stft.istft_frames(frames, hop_length, win_length)
     angles = torch.complex(torch.cos(init_phase), torch.sin(init_phase))
     carry = (angles, torch.zeros_like(angles))
     angles, _ = gl_steps(magnitude, carry, n_iter, hop_length, win_length,
                          momentum, use_pallas_glue, length, transform)
     return _stft.istft(magnitude * angles, hop_length, win_length, length=length)
+
+
+def _check_glue_shapes(magnitude, win_length: int, n_fft: int, length) -> None:
+    """The glue loops take one (bins, frames) clip framed at n_fft."""
+    if win_length != n_fft or length is not None or magnitude.ndim != 2:
+        raise ValueError("the glue loop (use_pallas_glue=True, or transform='dft') needs one "
+                         "(bins, frames) clip, win_length == n_fft and length=None; the "
+                         "fft loop with use_pallas_glue=False takes the others")
 
 
 def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
@@ -102,9 +125,7 @@ def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
     angles, rebuilt = carry
 
     if transform == "dft":
-        if win_length != n_fft or length is not None or magnitude.ndim != 2:
-            raise ValueError("transform='dft' needs one (bins, frames) clip, "
-                             "win_length == n_fft and length=None")
+        _check_glue_shapes(magnitude, win_length, n_fft, length)
         return _gl_steps_dft(magnitude, carry, n_iter, hop_length, mom, use_pallas_glue)
 
     if not use_pallas_glue:
@@ -112,32 +133,66 @@ def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
             inverse = _stft.istft(magnitude * angles, hop_length, win_length,
                                   length=length)
             rebuilt_new = _stft.stft(inverse, n_fft, hop_length, win_length)
-            angles = rebuilt_new - mom * rebuilt
-            angles = angles / (torch.abs(angles) + EPS)
+            angles = torch.view_as_complex(_momentum_update(
+                torch.view_as_real(rebuilt_new), torch.view_as_real(rebuilt), mom))
             rebuilt = rebuilt_new
         return angles, rebuilt
 
-    if win_length != n_fft or length is not None or magnitude.ndim != 2:
-        raise ValueError("use_pallas_glue=True needs one (bins, frames) clip, "
-                         "win_length == n_fft and length=None; pass "
-                         "use_pallas_glue=False otherwise")
-    n_frames = magnitude.shape[-1]
-    dev = magnitude.device
-    window = _stft.window_tensor(n_fft, win_length, dev)
-    inv_blocks = _inv_blocks(n_fft, hop_length, n_frames, dev)
-    # frame-major (frames, bins) inside the loop: irfft/rfft run along the
-    # contiguous last axis and the glue takes (frames, n_fft) rows
-    mag_t = magnitude.transpose(-1, -2).contiguous()
-    angles = angles.transpose(-1, -2).contiguous()
-    rebuilt = rebuilt.transpose(-1, -2).contiguous()
+    _check_glue_shapes(magnitude, win_length, n_fft, length)
+    mag_t = magnitude.transpose(-1, -2).contiguous().unsqueeze(-1)
+    ang, reb = _gl_steps_real(mag_t, torch.view_as_real(angles.transpose(-1, -2).contiguous()),
+                              torch.view_as_real(rebuilt.transpose(-1, -2).contiguous()),
+                              n_iter, hop_length, mom)
+    return (torch.view_as_complex(ang).transpose(-1, -2),
+            torch.view_as_complex(reb).transpose(-1, -2))
+
+
+def _iterate(step, n_iter, state: tuple) -> tuple:
+    """``n_iter`` calls of ``step`` on ``state``. While ``torch.export``
+    traces, one ``while_loop`` whose body is one call, so a program holds
+    one iteration and takes ``n_iter`` as an input (a 0-d int64 tensor on
+    the host: the loop's counter stays there too, so the loop never waits
+    for the card) and AOTInductor compiles the body once. Eager, a Python
+    loop: run eagerly, ``while_loop`` compiles its body with Dynamo at the
+    first call of each shape (seconds)."""
+    if torch.compiler.is_exporting():
+        return while_loop(lambda i, *s: i < n_iter, lambda i, *s: (i + 1, *step(*s)),
+                          (torch.zeros((), dtype=torch.int64), *state))[1:]
     for _ in range(n_iter):
-        frames = torch.fft.irfft(mag_t * angles, n=n_fft, dim=-1)
+        state = step(*state)
+    return state
+
+
+def _momentum_update(reb_new, reb, mom: float):
+    """The momentum step and the renormalisation on [Re, Im] pairs (last
+    axis 2): angles = a / (|a| + EPS), a = rebuilt - mom * previous. Four
+    elementwise kernels eagerly (the step in one ``add``, |a| as hypot(re,
+    im), + EPS, the division); every fft loop shares it, so the glue loop
+    and the plain istft/stft loop round alike."""
+    a = torch.add(reb_new, reb, alpha=-mom)
+    return a / (torch.hypot(a[..., 0], a[..., 1]) + EPS).unsqueeze(-1)
+
+
+def _gl_steps_real(mag_t, ang, reb, n_iter, hop: int, mom: float):
+    """The glue loop of ``griffinlim`` and ``gl_steps`` on real frame-major
+    state: ``mag_t`` (frames, bins, 1), the angles and the last rebuilt
+    spectrum (frames, bins, 2) as [Re, Im]. irfft/rfft run along the
+    contiguous last axis and the glue takes (frames, n_fft) rows; between
+    the transforms the product and ``_momentum_update`` are real arithmetic,
+    which a compiler (AOTInductor) fuses. Returns (angles, rebuilt)."""
+    n_frames, bins = mag_t.shape[:2]
+    n_fft = 2 * (bins - 1)
+    dev = mag_t.device
+    window = _stft.window_tensor(n_fft, n_fft, dev)
+    inv_blocks = _inv_blocks(n_fft, hop, n_frames, dev)
+
+    def step(ang, reb):
+        frames = torch.fft.irfft(torch.view_as_complex(mag_t * ang), n=n_fft, dim=-1)
         g = _glue.gl_consistency_frames(frames, window, inv_blocks)
-        rebuilt_new = torch.fft.rfft(g, dim=-1)
-        angles = rebuilt_new - mom * rebuilt
-        angles = angles / (torch.abs(angles) + EPS)
-        rebuilt = rebuilt_new
-    return angles.transpose(-1, -2), rebuilt.transpose(-1, -2)
+        reb_new = torch.view_as_real(torch.fft.rfft(g, dim=-1))
+        return _momentum_update(reb_new, reb, mom), reb_new
+
+    return _iterate(step, n_iter, (ang, reb))
 
 
 def _inv_blocks(n_fft: int, hop: int, n_frames: int, device) -> torch.Tensor:
@@ -181,15 +236,15 @@ def _gl_steps_dft(magnitude, carry, n_iter: int, hop: int, mom: float,
     def pack(z):  # complex (bins, frames) -> real (frames, 2*bins)
         return torch.cat([z.real, z.imag], dim=0).transpose(0, 1).contiguous()
 
-    ang, reb = pack(carry[0]), pack(carry[1])
-    for _ in range(n_iter):
+    def step(ang, reb):
         spec = torch.cat([ang[:, :bins] * mag_t, ang[:, bins:] * mag_t], dim=1)
         frames = matmul(spec, inv)
         reb_new = matmul(glue(frames, window, inv_blocks), fwd)
         a = reb_new - mom * reb
         norm = torch.sqrt(a[:, :bins] ** 2 + a[:, bins:] ** 2) + EPS
-        ang = torch.cat([a[:, :bins] / norm, a[:, bins:] / norm], dim=1)
-        reb = reb_new
+        return torch.cat([a[:, :bins] / norm, a[:, bins:] / norm], dim=1), reb_new
+
+    ang, reb = _iterate(step, n_iter, (pack(carry[0]), pack(carry[1])))
 
     def unpack(p):  # real (frames, 2*bins) -> complex (bins, frames)
         return torch.complex(p[:, :bins], p[:, bins:]).transpose(0, 1)

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), their wrappers,
-and the ``mmst_torch`` operators that carry the glue and dropout kernels
-into traced programs (registered where each wrapper is).
+and the ``mmst_torch`` operators that carry them, defined in C++
+(``csrc/mmst_ops.cpp``) and loaded by ``_library.ops()``.
 
-Importing this package builds nothing: a kernel is compiled at its first
-launch (``_build.py``), so the modules import where there is no nvcc.
+Importing this package builds nothing: the operator library is built at
+its first use (``_build.py``), so the modules import anywhere.
 """
 from . import dropout, fused_conv, gl_glue  # noqa: F401
+from ._library import ops  # noqa: F401

@@ -18,31 +18,31 @@ Entry points, on contiguous float32 or bfloat16 tensors:
   - ``dropout_apply``: ``x * mask`` in one pass, the mask never stored;
   - ``dropout_grad``: the same kernel on the incoming gradient, for the
     backward (it regenerates the mask from the seed instead of saving it);
-  - ``dropout``: ``x * mask`` with that backward, through the operator
-    ``mmst_torch::dropout_apply`` (the model's dropout).
-On a CUDA tensor each launches the kernel or raises; on a CPU tensor it
-runs the plain version (which also takes float64, for ``gradcheck``).
-``LAUNCHES`` counts kernel launches per entry point and nothing else.
+  - ``dropout``: ``x * mask`` with that backward (the model's dropout).
+Each calls an operator of ``csrc/mmst_ops.cpp``: ``mmst_torch::dropout_mask``
+or ``mmst_torch::dropout_apply`` (``backward=True`` for the gradient; its
+autograd formula is attached in ``_library.py``). On a CUDA tensor the
+operator launches the kernel or raises; on a CPU tensor it runs the plain
+version, there in C++ (which also takes float64, for ``gradcheck``).
+``LAUNCHES`` reads the library's count of CUDA launches per entry point.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-LAUNCHES = {"dropout_mask": 0, "dropout_apply": 0, "dropout_grad": 0}
+from . import _library
+
+LAUNCHES = _library.LaunchCounts("dropout_mask", "dropout_apply", "dropout_grad")
 
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers (Random123)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key bumps
 _U32 = 0xFFFFFFFF
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 def fold_seed(seed: int, k: int) -> int:
@@ -141,28 +141,6 @@ def dropout_apply_reference(x: torch.Tensor, seed: int, call_index: int,
 
 # ---- wrappers ---------------------------------------------------------------
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures bound."""
-    from . import _build
-
-    lib = _build.load("dropout")
-    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
-    tail = [ctypes.c_longlong, ctypes.c_int, u32, u32, u32, u32, ctypes.c_float, vp]
-    lib.philox_dropout_mask.argtypes = [vp] + tail
-    lib.philox_dropout_mask.restype = ctypes.c_int
-    lib.philox_dropout_apply.argtypes = [vp, vp] + tail
-    lib.philox_dropout_apply.restype = ctypes.c_int
-    return lib
-
-
-def _kernel_args(n: int, dtype: torch.dtype, seed: int, call_index: int, rate: float,
-                 device: torch.device) -> tuple:
-    return (n, _KERNEL_DTYPES[dtype], int(seed) & _U32, int(seed) >> 32, int(call_index),
-            keep_threshold(rate), float(_scale(rate, dtype)),
-            torch.cuda.current_stream(device).cuda_stream)
-
-
 def _check_device(device: torch.device, dtype: torch.dtype) -> None:
     if device.type == "cuda":
         if dtype not in _KERNEL_DTYPES:
@@ -174,9 +152,11 @@ def _check_device(device: torch.device, dtype: torch.dtype) -> None:
         raise ValueError(f"unsupported device {device}")
 
 
-def _launch_check(err: int, entry: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{entry}: philox_dropout launch failed with cudaError {err}")
+def _signed(seed: int) -> int:
+    """The unsigned 64-bit seed as the schema's signed ``int`` (its two's
+    complement); the operators take it back as unsigned."""
+    seed = int(seed)
+    return seed - 2**64 if seed >= 2**63 else seed
 
 
 def dropout_mask(seed: int, call_index: int, shape, rate: float,
@@ -186,14 +166,8 @@ def dropout_mask(seed: int, call_index: int, shape, rate: float,
     _check_args(seed, call_index, rate)
     device = torch.device(device)
     _check_device(device, dtype)
-    if device.type == "cpu":
-        return dropout_mask_reference(seed, call_index, shape, rate, dtype)
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
-    err = _lib().philox_dropout_mask(
-        out.data_ptr(), *_kernel_args(out.numel(), dtype, seed, call_index, rate, device))
-    _launch_check(err, "dropout_mask")
-    LAUNCHES["dropout_mask"] += 1
-    return out
+    return _library.ops().dropout_mask([int(d) for d in shape], _signed(seed), int(call_index),
+                                       float(rate), dtype, device)
 
 
 def _apply(x: torch.Tensor, seed: int, call_index: int, rate: float, entry: str) -> torch.Tensor:
@@ -201,15 +175,8 @@ def _apply(x: torch.Tensor, seed: int, call_index: int, rate: float, entry: str)
     _check_device(x.device, x.dtype)
     if not x.is_contiguous():
         raise ValueError(f"{entry} needs a contiguous tensor")
-    if x.device.type == "cpu":
-        return dropout_apply_reference(x, seed, call_index, rate)
-    out = torch.empty_like(x)
-    err = _lib().philox_dropout_apply(
-        x.data_ptr(), out.data_ptr(),
-        *_kernel_args(x.numel(), x.dtype, seed, call_index, rate, x.device))
-    _launch_check(err, entry)
-    LAUNCHES[entry] += 1
-    return out
+    return _library.ops().dropout_apply(x, _signed(seed), int(call_index), float(rate),
+                                        entry == "dropout_grad")
 
 
 def dropout_apply(x: torch.Tensor, seed: int, call_index: int, rate: float) -> torch.Tensor:
@@ -223,40 +190,7 @@ def dropout_grad(grad: torch.Tensor, seed: int, call_index: int, rate: float) ->
     return _apply(grad, seed, call_index, rate, "dropout_grad")
 
 
-# ---- the kernel as a PyTorch operator ----------------------------------------
-# ``mmst_torch::dropout_apply``, so that a ``torch.export`` trace and a
-# ``TorchDispatchMode`` see the launches (see gl_glue.py). The schema's
-# ``int`` is signed 64-bit: the unsigned seed crosses as its two's
-# complement. The gradient is the operator itself on the incoming gradient
-# with ``backward=True``; only (seed, call_index, rate) are saved, never
-# the mask.
-
-@torch.library.custom_op("mmst_torch::dropout_apply", mutates_args=())
-def _dropout_op(x: torch.Tensor, seed: int, call_index: int, rate: float,
-                backward: bool = False) -> torch.Tensor:
-    entry = dropout_grad if backward else dropout_apply
-    return entry(x, seed % 2**64, call_index, rate)
-
-
-@_dropout_op.register_fake
-def _(x, seed, call_index, rate, backward=False):
-    return torch.empty_like(x)
-
-
-def _dropout_setup(ctx, inputs, output):
-    ctx.dropout_args = inputs[1:4]
-
-
-def _dropout_backward(ctx, grad):
-    g = torch.ops.mmst_torch.dropout_apply(grad.contiguous(), *ctx.dropout_args, True)
-    return g, None, None, None, None
-
-
-_dropout_op.register_autograd(_dropout_backward, setup_context=_dropout_setup)
-
-
 def dropout(x: torch.Tensor, seed: int, call_index: int, rate: float) -> torch.Tensor:
     """``x * mask`` with a gradient of ``grad * mask``, through the
     ``mmst_torch::dropout_apply`` operator; ``seed`` is unsigned 64-bit."""
-    signed = seed - 2**64 if seed >= 2**63 else seed
-    return torch.ops.mmst_torch.dropout_apply(x, signed, call_index, rate, False)
+    return _library.ops().dropout_apply(x, _signed(seed), call_index, rate, False)

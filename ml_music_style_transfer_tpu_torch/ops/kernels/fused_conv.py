@@ -8,9 +8,11 @@ channel-last activations, float32 accumulation and statistics. The kernel
 is ``csrc/fused_conv.cu`` (design and bound in its header): a conv GEMM
 (bfloat16: wgmma fed by TMA) that writes y to a float32 workspace and each
 64-row box's partial statistics, then one normalisation pass that merges
-them; two launches behind one C entry point. ``LAUNCHES`` counts one per
-wrapper call that launches them. ``instnorm_stats_boxed`` is the plain
-version of that reduction.
+them; two launches behind one C entry point, called by the operator
+``mmst_torch::conv1x3_instnorm_lrelu`` (``csrc/mmst_ops.cpp``, which also
+pads and aligns the operands as TMA needs). ``LAUNCHES`` reads the
+library's count, one per call that launches them.
+``instnorm_stats_boxed`` is the plain version of that reduction.
 
 As in the JAX package, the model does not call it: the port's model keeps
 ``F.conv1d`` -> ``instance_norm`` -> ``leaky_relu`` (``models/layers.py``),
@@ -19,32 +21,26 @@ as the JAX model keeps XLA's conv. Its entry point is the benchmark
 gives. It is forward-only, as in JAX: the wrapper refuses inputs that
 require grad while grad mode is on, since no gradient would flow back.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs the plain version.
+On a CUDA tensor the operator launches the kernel or raises; on a CPU
+tensor it runs the plain version, there in ATen op for op.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"conv1x3_instnorm_lrelu": 0}
+from . import _library
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BF16_ALIGN = 8  # bfloat16 elements in 16 bytes: TMA's stride unit
+LAUNCHES = _library.LaunchCounts("conv1x3_instnorm_lrelu")
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 BOX = 64  # time rows of one item per GEMM box (csrc/fused_conv.cu kBox)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
+    LAUNCHES.reset()
 
 
 # ---- plain version ----------------------------------------------------------
@@ -93,29 +89,11 @@ def gemm_ctas(batch: int, t: int, cout: int, dtype: torch.dtype) -> int:
     ``dtype`` on the current card: bfloat16, two 64-row boxes by a tile of
     256, 192 or 128 output channels, the width picked from the card's SM
     count (``csrc/fused_conv.cu`` ``tile_n``); float32, one box by 64.
-    Builds the kernel library, so it needs nvcc."""
-    n = _lib().conv1x3_instnorm_lrelu_ctas(batch, t, cout, _KERNEL_DTYPES[dtype])
-    if n < 0:
-        raise RuntimeError(f"conv1x3_instnorm_lrelu_ctas failed with cudaError {-n}")
-    return n
+    Needs the operator library built with CUDA."""
+    return _library.ops().conv1x3_instnorm_lrelu_ctas(batch, t, cout, dtype)
 
 
 # ---- wrapper ----------------------------------------------------------------
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signature bound."""
-    from . import _build
-
-    lib = _build.load("fused_conv")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.conv1x3_instnorm_lrelu.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
-                                           ci, ci, ci, ci, ci, cf, cf, vp]
-    lib.conv1x3_instnorm_lrelu.restype = ci
-    lib.conv1x3_instnorm_lrelu_ctas.argtypes = [ctypes.c_longlong, ci, ci, ci]
-    lib.conv1x3_instnorm_lrelu_ctas.restype = ctypes.c_longlong
-    return lib
-
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if x.dtype not in _KERNEL_DTYPES:
@@ -139,11 +117,6 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
                            "call it under torch.no_grad() or on tensors that need no grad")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself if its data starts on a 16-byte boundary, else a copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def conv1x3_instnorm_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            eps: float = 1e-5, slope: float = 0.01) -> torch.Tensor:
     """LeakyReLU(InstanceNorm_T(conv1x3(x))) in one call.
@@ -156,40 +129,9 @@ def conv1x3_instnorm_lrelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the TPU interpreter; they have no counterpart here.
     """
     _check(x, w, b)
-    if x.device.type == "cpu":
-        return conv1x3_instnorm_lrelu_reference(x, w, b, eps, slope)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    B, T, cin = x.shape
-    cout = w.shape[2]
-    w = w.to(x.dtype).contiguous()
-    if x.dtype == torch.bfloat16:
-        # TMA: row strides a multiple of 16 bytes, so Cin and Cout padded to
-        # multiples of 8 with zeros (Cin = 1025 at audio_down_0.conv1), and
-        # 16-byte starts
-        cin_p, cout_p = _round_up(cin, _BF16_ALIGN), _round_up(cout, _BF16_ALIGN)
-        x = F.pad(x, (0, cin_p - cin)) if cin_p != cin else _aligned(x)
-        w = F.pad(w, (0, cout_p - cout, 0, cin_p - cin)) if (cin_p, cout_p) != (cin, cout) \
-            else _aligned(w)
-    else:
-        cin_p, cout_p = cin, cout
-    out = torch.empty((B, T, cout), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    # y (B*T, ldy) then the boxes' (mean, M2) partials (B*ceil(T/64), ldy, 2)
-    ldy = _round_up(cout, 8)
-    ws = torch.empty(ldy * (B * T + 2 * B * -(-T // BOX)), dtype=torch.float32, device=x.device)
-    err = _lib().conv1x3_instnorm_lrelu(
-        x.data_ptr(), w.data_ptr(), None, ws.data_ptr(), out.data_ptr(), B, T,
-        cin_p, cout, cout_p, _KERNEL_DTYPES[x.dtype], eps, slope,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err > 0:
-        raise RuntimeError(f"conv1x3_instnorm_lrelu launch failed with cudaError {err}")
-    if err < 0:
-        raise RuntimeError(f"conv1x3_instnorm_lrelu: cuTensorMapEncodeTiled failed with "
-                           f"CUresult {-err}")
-    LAUNCHES["conv1x3_instnorm_lrelu"] += 1
-    return out
+    return _library.ops().conv1x3_instnorm_lrelu(x, w, b, float(eps), float(slope))
 
 
 # ---- the model's conv blocks ------------------------------------------------

@@ -16,53 +16,30 @@ It replaces the JAX package's Pallas kernels in
     edge-frame fix-up (gl_glue.py:161-180): crop, reflect pad, frame, window.
 
 The kernels are in ``csrc/gl_glue.cu`` (design and bound in its header).
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs the plain PyTorch version beside it. The two wrappers are also
-the operators ``mmst_torch::gl_ola_nola`` and ``mmst_torch::gl_frame_window``,
-which ``gl_consistency_frames`` calls while it is traced or watched. ``LAUNCHES`` counts kernel
-launches per kernel and nothing else; the serving daemon launches from two
-threads, so the counts are bumped under a lock.
+Each wrapper checks its arguments and calls its operator,
+``mmst_torch::gl_ola_nola`` or ``mmst_torch::gl_frame_window``
+(``csrc/mmst_ops.cpp``): on a CUDA tensor it launches the kernel or
+raises; on a CPU tensor it runs the plain version, written there in ATen
+op for op as the Python plain versions beside it. Being operators, the
+calls are traced by ``torch.export`` and seen by a ``TorchDispatchMode``.
+``LAUNCHES`` reads the library's count of CUDA launches per kernel (atomic
+counters: the serving daemon launches from two threads).
 """
 from __future__ import annotations
-
-import ctypes
-import functools
-import threading
 
 import torch
 
 from .. import stft as _stft
+from . import _library
 
 R = 8  # n_fft // hop overlap factor (2048 / 256)
 MIN_FRAMES = 3 * R  # as the JAX kernel's ``supported`` guard
 
-LAUNCHES = {"gl_ola_nola": 0, "gl_frame_window": 0}
-_launch_lock = threading.Lock()
+LAUNCHES = _library.LaunchCounts("gl_ola_nola", "gl_frame_window")
 
 
 def reset_launches() -> None:
-    with _launch_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def _count(kernel: str) -> None:
-    with _launch_lock:
-        LAUNCHES[kernel] += 1
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built at first use, with its C signatures bound."""
-    from . import _build
-
-    lib = _build.load("gl_glue")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gl_ola_nola.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.gl_ola_nola.restype = ci
-    lib.gl_frame_window.argtypes = [vp, vp, vp, ci, ci, vp]
-    lib.gl_frame_window.restype = ci
-    return lib
+    LAUNCHES.reset()
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -89,11 +66,6 @@ def supported(nf: int, n_fft: int, hop: int) -> bool:
     guard, ``gl_glue.py:125``): n_fft = 8 hops of a multiple of 4 samples,
     at least 24 frames."""
     return n_fft == R * hop and hop % 4 == 0 and nf >= MIN_FRAMES
-
-
-def _launch_check(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed with cudaError {err}")
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -124,6 +96,11 @@ def gl_consistency_frames_reference(frames, window, inv_blocks):
 
 # ---- wrappers ---------------------------------------------------------------
 
+def _check_device(dev: torch.device) -> None:
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
 def ola_nola(frames: torch.Tensor, window: torch.Tensor,
              inv_blocks: torch.Tensor) -> torch.Tensor:
     """Window -> overlap-add -> x 1/WSS: (nf, n_fft) -> (nf+7, hop) f32."""
@@ -133,17 +110,8 @@ def ola_nola(frames: torch.Tensor, window: torch.Tensor,
     _check("frames", frames, (nf, n_fft), dev)
     _check("window", window, (n_fft,), dev)
     _check("inv_blocks", inv_blocks, (nf + R - 1, hop), dev)
-    if dev.type == "cpu":
-        return ola_nola_reference(frames, window, inv_blocks)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    y = torch.empty((nf + R - 1, hop), dtype=torch.float32, device=dev)
-    err = _lib().gl_ola_nola(frames.data_ptr(), window.data_ptr(),
-                             inv_blocks.data_ptr(), y.data_ptr(), nf, hop,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check(err, "gl_ola_nola")
-    _count("gl_ola_nola")
-    return y
+    _check_device(dev)
+    return _library.ops().gl_ola_nola(frames, window, inv_blocks)
 
 
 def frame_window(y: torch.Tensor, window: torch.Tensor, nf: int) -> torch.Tensor:
@@ -153,62 +121,18 @@ def frame_window(y: torch.Tensor, window: torch.Tensor, nf: int) -> torch.Tensor
     dev = y.device
     _check("y", y, (nf + R - 1, hop), dev)
     _check("window", window, (n_fft,), dev)
-    if dev.type == "cpu":
-        return frame_window_reference(y, window, nf)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    g = torch.empty((nf, n_fft), dtype=torch.float32, device=dev)
-    err = _lib().gl_frame_window(y.data_ptr(), window.data_ptr(), g.data_ptr(),
-                                 nf, hop, torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check(err, "gl_frame_window")
-    _count("gl_frame_window")
-    return g
-
-
-# ---- the wrappers as PyTorch operators ---------------------------------------
-# A ctypes launch takes raw data pointers, so neither a ``torch.export``
-# trace (a FakeTensor has none) nor a ``TorchDispatchMode`` sees it. As
-# ``mmst_torch::`` operators the same launches are visible to both; each
-# implementation is the wrapper above, and a fake gives the output's shape.
-
-@torch.library.custom_op("mmst_torch::gl_ola_nola", mutates_args=())
-def _ola_nola_op(frames: torch.Tensor, window: torch.Tensor,
-                 inv_blocks: torch.Tensor) -> torch.Tensor:
-    return ola_nola(frames, window, inv_blocks)
-
-
-@_ola_nola_op.register_fake
-def _(frames, window, inv_blocks):
-    return frames.new_empty((frames.shape[0] + R - 1, frames.shape[1] // R))
-
-
-@torch.library.custom_op("mmst_torch::gl_frame_window", mutates_args=())
-def _frame_window_op(y: torch.Tensor, window: torch.Tensor, nf: int) -> torch.Tensor:
-    return frame_window(y, window, nf)
-
-
-@_frame_window_op.register_fake
-def _(y, window, nf):
-    return y.new_empty((nf, window.shape[0]))
+    _check_device(dev)
+    return _library.ops().gl_frame_window(y, window, nf)
 
 
 def gl_consistency_frames(frames: torch.Tensor, window: torch.Tensor,
                           inv_blocks: torch.Tensor) -> torch.Tensor:
     """Fused GL glue: raw irfft frames (nf, n_fft) -> windowed rfft input
-    frames (nf, n_fft), f32, edge frames included.
-
-    While PyTorch traces (``torch.export``, ``torch.compile``) or a
-    ``TorchDispatchMode`` watches (NaN debugging), the two kernels are
-    called through their operators, so an exported program launches them
-    and the mode checks their outputs. Otherwise the wrappers are called
-    directly: an operator's dispatch costs host time on each of the 600
-    calls of a request, and serving is bound by the host (PERF.md §6).
+    frames (nf, n_fft), f32, edge frames included: the two operators, so an
+    exported program launches the kernels and a dispatch mode (NaN
+    debugging) checks their outputs.
 
     ``inv_blocks`` is 1/window_sumsquare reshaped to (nf + 7, hop), zeros
     where the sum is ~0. Requires n_fft == 8 * hop and nf >= 24.
     """
-    nf = frames.shape[0]
-    if torch.compiler.is_compiling() or torch._C._len_torch_dispatch_stack():
-        y = torch.ops.mmst_torch.gl_ola_nola(frames, window, inv_blocks)
-        return torch.ops.mmst_torch.gl_frame_window(y, window, nf)
-    return frame_window(ola_nola(frames, window, inv_blocks), window, nf)
+    return frame_window(ola_nola(frames, window, inv_blocks), window, frames.shape[0])

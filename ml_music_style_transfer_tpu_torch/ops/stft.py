@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``ops/stft.py`` (librosa semantics,
 reference preprocessing/preprocess.py:47-57 and model/inference.py:105-110).
-Framing keeps the dense reshape-shift decomposition and the overlap-add its
-dense shifted sum (both need ``n_fft % hop == 0``, true for 2048/256). The
+Framing keeps the dense reshape-shift decomposition where ``n_fft % hop ==
+0`` (true for 2048/256) and gathers the frames by index otherwise, as the
+JAX package does; the overlap-add is a dense shifted sum, which needs
+``n_fft % hop == 0`` (other hops raise, as in JAX). The
 transforms are ``torch.fft.rfft``/``irfft`` (cuFFT on the card) or, with
 ``transform="dft"``, one matmul against a packed [Re|Im] DFT matrix
 (``dft_matrices``), as the JAX package's accelerator path.
@@ -123,6 +125,27 @@ def frame_dense(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.T
     return torch.cat([blocks[..., j : j + n_frames, :] for j in range(r)], dim=-1)
 
 
+def frame_gather(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
+    """Frame (..., samples) -> (..., n_frames, n_fft) by index: frame i is
+    samples i*hop .. i*hop + n_fft - 1, for any hop."""
+    idx = (torch.arange(n_frames, device=y.device)[:, None] * hop
+           + torch.arange(n_fft, device=y.device)[None, :])
+    return y[..., idx]
+
+
+def _frames(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
+    if n_fft % hop == 0:
+        return frame_dense(y, n_fft, hop, n_frames)
+    return frame_gather(y, n_fft, hop, n_frames)
+
+
+def n_frames_for(n_samples: int, hop_length: int, center: bool = True) -> int:
+    """Frame-count contract: 1 + n_samples // hop for the centred STFT."""
+    if center:
+        return 1 + n_samples // hop_length
+    raise NotImplementedError("only center=True is used by the pipeline")
+
+
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add (..., n_frames, n_fft) -> (..., n_fft + hop*(n_frames-1))
     as a dense shifted sum over the n_fft/hop pieces of each frame."""
@@ -149,13 +172,11 @@ def stft(
     ``center`` reflect-pads by n_fft//2 on both sides."""
     if win_length is None:
         win_length = n_fft
-    if n_fft % hop_length != 0:
-        raise NotImplementedError("hop must divide n_fft for the dense framing")
     window = window_tensor(n_fft, win_length, y.device)
     if center:
         y = reflect_pad(y, n_fft // 2)
     n_frames = 1 + (y.shape[-1] - n_fft) // hop_length
-    frames = frame_dense(y, n_fft, hop_length, n_frames)
+    frames = _frames(y, n_fft, hop_length, n_frames)
     return torch.fft.rfft(frames * window, dim=-1).transpose(-1, -2)
 
 
@@ -170,11 +191,20 @@ def istft(
     n_fft = 2 * (S.shape[-2] - 1)
     if win_length is None:
         win_length = n_fft
-    n_frames = S.shape[-1]
-    window = window_tensor(n_fft, win_length, S.device)
-    frames = torch.fft.irfft(S.transpose(-1, -2), n=n_fft, dim=-1) * window
+    return istft_frames(torch.fft.irfft(S.transpose(-1, -2), n=n_fft, dim=-1), hop_length,
+                        win_length, center, length)
+
+
+def istft_frames(frames: torch.Tensor, hop_length: int = 256, win_length: int | None = None,
+                 center: bool = True, length: int | None = None) -> torch.Tensor:
+    """``istft`` after its inverse FFT: (..., n_frames, n_fft) real frames ->
+    (..., samples), windowed, overlap-added and NOLA-normalised."""
+    n_frames, n_fft = frames.shape[-2:]
+    if win_length is None:
+        win_length = n_fft
+    frames = frames * window_tensor(n_fft, win_length, frames.device)
     y = overlap_add(frames, hop_length)
-    y = y * wss_inv_tensor(n_fft, win_length, hop_length, n_frames, S.device)
+    y = y * wss_inv_tensor(n_fft, win_length, hop_length, n_frames, frames.device)
     if center:
         y = y[..., n_fft // 2 : y.shape[-1] - n_fft // 2]
     if length is not None:
@@ -214,14 +244,12 @@ def log_power_stft(
         return log_power(stft(y, n_fft=n_fft, hop_length=hop_length, center=center))
     if transform != "dft":
         raise ValueError(f"transform must be 'fft' or 'dft', got {transform!r}")
-    if n_fft % hop_length != 0:
-        raise NotImplementedError("hop must divide n_fft for the dense framing")
     bins = n_fft // 2 + 1
     window = window_tensor(n_fft, n_fft, y.device)
     if center:
         y = reflect_pad(y, n_fft // 2)
     n_frames = 1 + (y.shape[-1] - n_fft) // hop_length
-    frames = frame_dense(y, n_fft, hop_length, n_frames)
+    frames = _frames(y, n_fft, hop_length, n_frames)
     fwd, _ = dft_matrices(n_fft, torch.float32, y.device)
     p = torch.matmul(frames * window, fwd)
     return torch.log1p(p[..., :bins] ** 2 + p[..., bins:] ** 2).transpose(-1, -2)

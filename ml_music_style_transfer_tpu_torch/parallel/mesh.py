@@ -246,6 +246,33 @@ def per_rank_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def per_device_param_bytes(params) -> tuple[int, int]:
+    """(bytes held on this rank, bytes of the whole) of ``params`` (the JAX
+    package's ``per_device_param_bytes``): a module's parameters, a dict or
+    an iterable of tensors. A DTensor counts its local shard here and its
+    global shape in the whole; a plain tensor counts whole in both, except a
+    tensor-parallel ``PerformanceNet``'s slices (``tp_dims``), which count
+    as the model axis's size times the slice in the whole."""
+    from torch.distributed.tensor import DTensor
+
+    from . import comm
+
+    whole = {}
+    if isinstance(params, torch.nn.Module):
+        if hasattr(params, "tp_dims"):
+            n = comm.group_size(params.tp_group())
+            whole = {k: n for k in params.tp_dims()}
+        items = params.named_parameters()
+    else:
+        items = params.items() if isinstance(params, dict) else enumerate(params)
+    per = total = 0
+    for name, p in items:
+        local = p.to_local() if isinstance(p, DTensor) else p
+        per += local.numel() * local.element_size()
+        total += p.numel() * p.element_size() * whole.get(name, 1)
+    return per, total
+
+
 def checkpoint_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """``mesh``'s ranks ordered (model, *batch axes), a mesh with no process
     groups of its own: the mesh the checkpoints' DTensors are placed on.

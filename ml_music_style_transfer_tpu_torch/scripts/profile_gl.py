@@ -71,10 +71,10 @@ def main(argv=None) -> dict:
     def full():  # the serving loop, n_iter iterations in one call
         return gl.gl_steps(mag, carry, args.n_iter, HOP, N_FFT, MOMENTUM)
 
-    def elementwise():
-        x = mag_t * ang_t
-        a = spec_t - mom * x
-        return a / (torch.abs(a) + gl.EPS)
+    mag_r, ang_r, spec_r = mag_t.unsqueeze(-1), torch.view_as_real(ang_t), torch.view_as_real(spec_t)
+
+    def elementwise():  # the loop's real-valued passes (griffinlim._gl_steps_real)
+        return gl._momentum_update(spec_r, mag_r * ang_r, mom)
 
     parts = {
         "irfft": lambda: torch.fft.irfft(spec_t, n=N_FFT, dim=-1),

@@ -365,21 +365,26 @@ def _epochs(exp_dir: str, ext: str) -> dict[int, str]:
     return out
 
 
+def _orbax_unreadable(path: str) -> NotImplementedError:
+    return NotImplementedError(f"{path} is an orbax checkpoint; reading it waits for "
+                               f"{ORBAX_ITEM}")
+
+
 def latest_checkpoint(exp_dir: str) -> tuple[str, int] | None:
     """(path, epoch) of the newest committed checkpoint in exp_dir (for one
     epoch the .pt, else the .msgpack, else the .dcp; a ``.dcp.tmp`` that
-    never committed is no checkpoint), or None. Raises
-    NotImplementedError where only orbax checkpoints exist."""
+    never committed is no checkpoint), or None. Where the newest is an
+    orbax checkpoint (the JAX package's answer, ``train/checkpoint.py``
+    ``latest_checkpoint``) it raises NotImplementedError; an orbax
+    checkpoint of the same epoch as another loses to it, as in JAX."""
     found = {**_epochs(exp_dir, SHARDED_EXT), **_epochs(exp_dir, "msgpack"),
              **_epochs(exp_dir, "pt")}
+    orbax = _epochs(exp_dir, "orbax")
+    if orbax and max(orbax) > max(found, default=-1):
+        raise _orbax_unreadable(orbax[max(orbax)])
     if found:
         epoch = max(found)
         return found[epoch], epoch
-    orbax = _epochs(exp_dir, "orbax")
-    if orbax:
-        raise NotImplementedError(
-            f"{exp_dir} holds only orbax checkpoints ({os.path.basename(orbax[max(orbax)])}, "
-            f"...); reading them waits for {ORBAX_ITEM}")
     return None
 
 
@@ -389,13 +394,18 @@ def best_checkpoint(exp_dir: str) -> tuple[str, int]:
     else the reference's own ``checkpoint-{best}.tar`` (train.py:202-204),
     else the newest committed checkpoint (a best-epoch save lost in a
     crash, or an asynchronous one that never committed; with a warning).
-    Where only orbax checkpoints exist it raises NotImplementedError."""
+    Where the JAX package's ``best_checkpoint`` would answer an orbax
+    checkpoint (``checkpoint-{best}.orbax``, before the ``.tar``, or the
+    newest) it raises NotImplementedError."""
     with open(os.path.join(exp_dir, "hyperparams.json")) as f:
         best = json.load(f)["best_epoch"]  # all inference reads (inference.py:120-122)
     for path in (checkpoint_path(exp_dir, best), checkpoint_path(exp_dir, best, "msgpack"),
                  checkpoint_path(exp_dir, best, "dcp"),
+                 os.path.join(exp_dir, f"checkpoint-{best}.orbax"),
                  os.path.join(exp_dir, f"checkpoint-{best}.tar")):
         if os.path.exists(path):
+            if path.endswith(".orbax"):
+                raise _orbax_unreadable(path)
             return path, best
     latest = latest_checkpoint(exp_dir)
     if latest is None:

@@ -18,8 +18,9 @@ package's ``utils/profiling.py``.
     checked output costs a device sync;
     it is a debugging mode;
   - ``enable_persistent_compile_cache()``: the port compiles nothing at run
-    time except its CUDA kernels (``ops/kernels/_build.py``), so it builds
-    them all ahead, into the build directory that later processes reuse.
+    time except its CUDA kernels and their operator library
+    (``ops/kernels/_build.py``), so it builds them all ahead, into the
+    build directory that later processes reuse.
 """
 from __future__ import annotations
 
@@ -152,4 +153,4 @@ def enable_persistent_compile_cache(device: str | torch.device | None = "cuda") 
     if os.environ.get("MMST_COMPILE_CACHE") == "0" or resolve_device(device).type != "cuda":
         return None
     _build.build_all()
-    return os.path.dirname(_build.library_path("gl_glue"))
+    return _build.ops_build_dir()

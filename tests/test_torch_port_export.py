@@ -68,10 +68,10 @@ def programs(tmp_path_factory):
         "forward": _saved_and_loaded(program_export.export_forward(cfg, t=T, device="cpu"),
                                      d / "forward.pt2"),
         "griffinlim": _saved_and_loaded(program_export.export_griffinlim(
-            n_iter=GL_ITERS, frames=GL_FRAMES, device="cpu"), d / "griffinlim.pt2"),
+            frames=GL_FRAMES, device="cpu"), d / "griffinlim.pt2"),
         "serving": _saved_and_loaded(program_export.export_serving(
-            cfg, n_tiles=N_TILES, audio_samples=AUDIO_SAMPLES, n_iter=SERVE_ITERS,
-            device="cpu"), d / "serving.pt2"),
+            cfg, n_tiles=N_TILES, audio_samples=AUDIO_SAMPLES, device="cpu"),
+            d / "serving.pt2"),
         "dir": d,
     }
 
@@ -126,9 +126,24 @@ class TestGriffinLim:
         want = np.asarray(jgl.griffinlim(mag, n_iter=GL_ITERS, init_phase=jnp.asarray(phase.numpy()),
                                          use_pallas_glue=False, transform="fft"))
         with torch.inference_mode():
-            got = programs["griffinlim"].module()(torch.from_numpy(spec), phase)
+            got = programs["griffinlim"].module()(torch.from_numpy(spec), phase,
+                                                  program_export.iterations(GL_ITERS))
         assert got.shape == (256 * (GL_FRAMES - 1),)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-3 * np.abs(want).max())
+
+    def test_program_equals_the_live_path(self, programs):
+        """The program's loop (one ``while_loop`` over the real-valued
+        iteration) replays the live ``griffinlim``'s operations: bit-equal."""
+        from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+        from ml_music_style_transfer_tpu_torch.ops import stft as tstft
+
+        spec = torch.from_numpy(_log_spec(np.random.default_rng(12), GL_FRAMES))
+        phase = program_export.init_phase(spec.shape, 13)
+        with torch.inference_mode():
+            got = programs["griffinlim"].module()(spec, phase, program_export.iterations(GL_ITERS))
+            want = tgl.griffinlim(tstft.inverse_log_power(spec), init_phase=phase,
+                                  n_iter=GL_ITERS, device="cpu")
+        assert torch.equal(got, want)
 
     def test_dft_transform_equals_the_live_path(self):
         """``transform="dft"`` stays selectable: the program equals the
@@ -137,22 +152,36 @@ class TestGriffinLim:
         from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
         from ml_music_style_transfer_tpu_torch.ops import stft as tstft
 
-        ep = program_export.export_griffinlim(n_iter=2, frames=32, device="cpu", transform="dft")
+        ep = program_export.export_griffinlim(frames=32, device="cpu", transform="dft")
         spec = torch.from_numpy(_log_spec(np.random.default_rng(10), 32))
         phase = program_export.init_phase(spec.shape, 11)
         with torch.inference_mode():
-            got = ep.module()(spec, phase)
+            got = ep.module()(spec, phase, program_export.iterations(2))
             want = tgl.griffinlim(tstft.inverse_log_power(spec), init_phase=phase, n_iter=2,
                                   transform="dft", device="cpu")
         assert torch.equal(got, want)
-        targets = [n.target for n in ep.graph.nodes]
-        assert targets.count(torch.ops.mmst_torch.gl_ola_nola.default) == 2
+        (body,) = program_export.loop_bodies(ep)
+        targets = [n.target for n in body.graph.nodes]
+        assert targets.count(torch.ops.mmst_torch.gl_ola_nola.default) == 1
 
     def test_graph_holds_one_glue_pair_per_iteration(self, programs):
-        targets = [n.target for n in programs["griffinlim"].graph.nodes
-                   if n.op == "call_function"]
-        assert targets.count(torch.ops.mmst_torch.gl_ola_nola.default) == GL_ITERS
-        assert targets.count(torch.ops.mmst_torch.gl_frame_window.default) == GL_ITERS
+        """The loop is one ``while_loop`` whose body (one iteration) holds
+        one pair of glue operators; a run calls each as many times as its
+        ``n_iter`` input says (the operator library's CPU counts)."""
+        from ml_music_style_transfer_tpu_torch.ops.kernels import _library, gl_glue
+
+        (body,) = program_export.loop_bodies(programs["griffinlim"])
+        targets = [n.target for n in body.graph.nodes if n.op == "call_function"]
+        assert targets.count(torch.ops.mmst_torch.gl_ola_nola.default) == 1
+        assert targets.count(torch.ops.mmst_torch.gl_frame_window.default) == 1
+        spec = torch.from_numpy(_log_spec(np.random.default_rng(9), GL_FRAMES))
+        for n_iter in (GL_ITERS, 1):
+            gl_glue.reset_launches()
+            with torch.inference_mode():
+                programs["griffinlim"].module()(spec, program_export.init_phase(spec.shape),
+                                                program_export.iterations(n_iter))
+            assert _library.launch_count("gl_ola_nola", "cpu") == n_iter
+            assert _library.launch_count("gl_frame_window", "cpu") == n_iter
 
 
 def _serving_inputs():
@@ -172,8 +201,10 @@ def _serving_inputs():
 
 
 def _program_args(params, audio, roll, onoff, starts, cond_starts, valid, t_total, phase):
+    """The serving program's inputs for that request, at SERVE_ITERS iterations."""
     return (params, *(torch.from_numpy(a) for a in (audio, roll, onoff, starts, cond_starts,
-                                                     valid)), torch.tensor(t_total), phase)
+                                                     valid)), torch.tensor(t_total), phase,
+            program_export.iterations(SERVE_ITERS))
 
 
 class TestServing:
@@ -236,7 +267,8 @@ class TestFreshProcess:
             "forward": (params, torch.from_numpy((rng.random((1, T, 128)) < 0.05).astype(
                 np.float32)), torch.from_numpy(rng.random((1, T, 1025), dtype=np.float32) * 8),
                 torch.from_numpy(rng.integers(-1, 2, (1, T, 128)).astype(np.float32))),
-            "griffinlim": (spec, program_export.init_phase(spec.shape, 4)),
+            "griffinlim": (spec, program_export.init_phase(spec.shape, 4),
+                           program_export.iterations(GL_ITERS)),
             "serving": _program_args(params, *_serving_inputs()),
         }
         torch.save(inputs, tmp_path / "in.pt")
@@ -260,20 +292,21 @@ class TestFreshProcess:
 class TestEntryPoints:
     def test_export_program_writes_programs_and_manifest(self, tmp_path, capsys):
         paths = export_program.main(["--out", str(tmp_path), "--width-mult", "0.0625",
-                                     "--t", str(T), "--n-iter", "2", "--frames", "32",
+                                     "--t", str(T), "--frames", "32",
                                      "--serving-n-tiles", "0", "--device", "cpu"])
         assert set(paths) == {"forward", "griffinlim", "manifest"}
         manifest = json.loads((tmp_path / "manifest.json").read_text())
         assert manifest["device"] == "cpu" and manifest["transform"] == "fft"
         assert manifest["forward"]["t"] == T and manifest["griffinlim"] == {
-            "n_iter": 2, "frames": 32, "inputs": ["spec", "init_phase"]}
+            "frames": 32, "inputs": ["spec", "init_phase", "n_iter"]}
         assert "serving" not in manifest and set(manifest["export_seconds"]) == {
             "forward", "griffinlim"}
         assert "exported in" in capsys.readouterr().out
         ep = program_export.load_artifact(paths["griffinlim"])
         spec = torch.from_numpy(_log_spec(np.random.default_rng(8), 32))
-        assert ep.module()(spec, program_export.init_phase(spec.shape)).shape == (256 * 31,)
+        assert ep.module()(spec, program_export.init_phase(spec.shape),
+                           program_export.iterations(2)).shape == (256 * 31,)
 
     def test_default_device_raises_without_a_card(self):
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            program_export.export_griffinlim(n_iter=1, frames=32)
+            program_export.export_griffinlim(frames=32)

@@ -156,15 +156,17 @@ class TestContract:
 
     def test_kernel_build_without_nvcc_raises(self, monkeypatch, tmp_path):
         """A CUDA tensor goes to the kernel library, never to the plain
-        version: without nvcc the build raises (this machine has none)."""
+        version: building the operator library with its CUDA kernels (as
+        a PyTorch built for CUDA does) raises without nvcc (this machine
+        has none)."""
         from ml_music_style_transfer_tpu_torch.ops.kernels import _build
 
         if _build.shutil.which("nvcc") or torch.cuda.is_available():
             pytest.skip("this machine can build the kernels")
         monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path))
-        fc._lib.cache_clear()
+        monkeypatch.setattr(_build, "with_cuda", lambda: True)
         with pytest.raises(RuntimeError, match="nvcc"):
-            fc._lib()
+            _build.build_all()
 
     def test_bench_needs_a_card(self):
         if torch.cuda.is_available():

@@ -1,5 +1,5 @@
 """The port's support code on the CPU: the kernels' ``mmst_torch`` operators
-(``ops/kernels/gl_glue.py``, ``dropout.py``), profiling and NaN debugging
+(``csrc/mmst_ops.cpp``, wrapped in ``ops/kernels/gl_glue.py``, ``dropout.py``), profiling and NaN debugging
 (``utils/profiling.py``), the reference ``.tar`` writer and its script
 against the JAX package's (``compat/torch_export.py``,
 ``scripts/export_torch_checkpoint.py``), and ``plot_spec``'s panels against
@@ -24,6 +24,7 @@ from ml_music_style_transfer_tpu_torch.compat import weights
 from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
 from ml_music_style_transfer_tpu_torch.data import audio_io
 from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+from ml_music_style_transfer_tpu_torch.ops import kernels
 from ml_music_style_transfer_tpu_torch.ops import stft as tstft
 from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
 from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue
@@ -60,9 +61,10 @@ class TestOperators:
     @pytest.mark.parametrize("case", ["gl_ola_nola", "gl_frame_window", "dropout_apply",
                                       "dropout_apply_backward"])
     def test_opcheck(self, case):
-        """Schema, fake (shapes), autograd registration and dispatch."""
+        """Schema, fake (shapes), autograd registration and dispatch of the
+        operators, defined in C++ and loaded by ``ops()``."""
         frames, window, inv = _glue_inputs()
-        ops = torch.ops.mmst_torch
+        ops = kernels.ops()
         if case == "gl_ola_nola":
             torch.library.opcheck(ops.gl_ola_nola.default, (frames, window, inv))
         elif case == "gl_frame_window":
@@ -86,10 +88,11 @@ class TestOperators:
         assert torch.equal(got, want)
 
     def test_griffinlim_takes_the_operators_only_when_watched(self):
-        """Under a dispatch mode Griffin-Lim's glue is the two operators,
-        one of each per iteration; in plain eager code (here under the
-        profiler, which records operator calls but is no dispatch mode) the
-        wrappers are called directly, and the result is the same."""
+        """Griffin-Lim's glue is the two operators, one of each per
+        iteration, under a dispatch mode and in plain eager code alike (here
+        under the profiler, which records operator calls but is no dispatch
+        mode): the C++ operators are the one route, watched or not, and the
+        result is the same."""
         mag = torch.rand((1025, 30), generator=torch.Generator().manual_seed(3))
         phase = 2 * np.pi * torch.rand(mag.shape, generator=torch.Generator().manual_seed(4))
         with profiling.NanCheckMode() as mode:
@@ -98,8 +101,9 @@ class TestOperators:
         assert mode.seen["mmst_torch.gl_frame_window.default"] == 3
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             plain = tgl.griffinlim(mag, n_iter=3, init_phase=phase, device="cpu")
-        names = {e.key for e in prof.key_averages()}
-        assert "aten::fft_irfft" in names and not any("mmst_torch" in n for n in names)
+        counts = {e.key: e.count for e in prof.key_averages()}
+        assert "aten::fft_irfft" in counts
+        assert counts["mmst_torch::gl_ola_nola"] == counts["mmst_torch::gl_frame_window"] == 3
         assert torch.equal(plain, watched)
 
     @pytest.mark.parametrize("seed", [7, SEED_HIGH])

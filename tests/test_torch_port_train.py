@@ -389,6 +389,25 @@ class TestFit:
         y = synth.synthesize_waveform(n_iter=2)
         assert y.ndim == 1 and len(y) > 44100 and np.all(np.isfinite(y))
 
+    def test_fit_resume_refuses_a_newer_orbax_checkpoint(self, tiny_h5, tmp_path, monkeypatch):
+        """A run directory holding checkpoint-3.msgpack and a newer
+        checkpoint-5.orbax: the JAX package's resume takes the orbax one
+        (its ``latest_checkpoint``); the port's raises naming item 7a
+        instead of resuming the older msgpack."""
+        monkeypatch.chdir(tmp_path)
+        d = os.path.join("experiments", "mixed")
+        os.makedirs(d)
+        jckpt.save_checkpoint(d, 3, {"epoch": 3})
+        os.makedirs(os.path.join(d, "checkpoint-5.orbax"))
+        exp = jckpt.ExperimentState(6, 1, "mixed")
+        exp.best_epoch = 5
+        exp.save(d)
+        assert jckpt.latest_checkpoint(d) == (os.path.join(d, "checkpoint-5.orbax"), 5)
+        tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(epochs=6, exp_name="mixed",
+                                                         batch_size=2), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 7a"):
+            tr.fit(tiny_h5, resume=True)
+
     def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path, monkeypatch):
         """The device-resident path (item 6) has landed: ``fit`` and the
         four resident methods run on a file without audio as far as that

@@ -429,3 +429,19 @@ def _zero_fit_resume(rank, cfg, mesh, h5, exp_root):
             for key in ("mu", "nu") for n in first["opt_state"][key])
         out["listing"] = sorted(os.listdir(exp_dir))
     return out
+
+
+# ---- parameter bytes per rank ----------------------------------------------------
+
+def param_bytes(rank):
+    """On a (1, 2) mesh: ``per_device_param_bytes`` of a tensor-parallel
+    width-1/16 model, and of a DTensor sharded over the model axis."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    mesh = pmesh.make_mesh(1, 2, device="cpu")
+    model = PerformanceNet(ModelConfig(**TINY_KW), generator=torch.Generator().manual_seed(0))
+    whole = pmesh.per_device_param_bytes(model)
+    model.shard_tensor_parallel_(pmesh.axis_group(mesh, "model"))
+    dt = distribute_tensor(torch.zeros(6, 4), mesh["model"], [Shard(0)])
+    return {"whole": whole, "tp": pmesh.per_device_param_bytes(model),
+            "dtensor": pmesh.per_device_param_bytes({"w": dt, "b": torch.zeros(3)})}
