@@ -197,6 +197,20 @@ scipy and the standard library. Phases, each reported on its own lines:
      (within 1e-6; ms) and the daemon's requests/s with each (60 requests
      per decoder with 30 s stereo timbres at 44.1 and 48 kHz); then
      ``scripts/profile_step.py`` and ``profile_gl.py`` at reduced counts;
+  22. orbax checkpoints (``orbax_phase``), read and written without orbax,
+     tensorstore or JAX (zstd by ctypes on ``libzstd.so.1``, its version
+     printed): the committed JAX-written directory
+     ``tests/data/orbax_jax/checkpoint-1.orbax`` bit-equal to its expected
+     leaves; a fresh full-width Trainer's 8.78 GB state after two steps
+     written by ``save_checkpoint_orbax`` (seconds to return and to
+     commit), its params read alone (seconds, GB/s, bytes read within 1 %
+     of the params' stored bytes) and the whole state read (seconds), both
+     bit-equal to the state written, beside phase 21's ``.dcp``
+     params-only restore; a 10 s request served from the directory through
+     ``best_checkpoint`` (300 launches of each glue kernel; equal to the
+     same weights served from memory); ``fit(resume=True)`` from it, one
+     epoch of 2 steps on seeded chunks (20 dropout launches, finite
+     losses); the phase's seconds;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -217,12 +231,12 @@ own process. The glue kernels' ``launches`` in the kernels' JSON record sum
 their counts over phases 4, 6-9, 15 (three requests), 17 (the programs and
 the live runs they are held to), 17b (the packages' runs, the timing and
 profiled runs), 18, 19 (the soak), 20 (sharded Griffin-Lim, two whole
-clips and two bulk clips) and 21 (three requests, 120 daemon requests),
-the dropout kernel's
+clips and two bulk clips), 21 (three requests, 120 daemon requests) and
+22 (two requests), the dropout kernel's
 over phases 11 (12 steps), 13 (the resident epoch and the evaluation), 14
 (12 steps), 15 (4 microbatch calls and 24 timed steps), 18 (8 steps, 2 of
-them NaN-debugged), 20 (the mesh step) and 21 (the steps around the
-saves). The
+them NaN-debugged), 20 (the mesh step), 21 (the steps around the
+saves) and 22 (the resumed epoch's 2 steps). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -2556,7 +2570,8 @@ def checkpoint_phase(torch, dk, glue, binf, tmp):
     requests, serial and pipelined, the decoders in turns, 60 requests per
     decoder, after two untimed requests);
     and the two profile scripts at reduced counts. Returns (dropout
-    launches, glue launches)."""
+    launches, glue launches, the params-only restore's seconds and bytes
+    read)."""
     import functools
 
     import torch.distributed as dist
@@ -2823,7 +2838,205 @@ def checkpoint_phase(torch, dk, glue, binf, tmp):
     profile_gl.main(["--n-iter", "50", "--warmup", "5"])
     dk.reset_launches()
     glue.reset_launches()
-    return 20 * n_steps, gl
+    return 20 * n_steps, gl, {"s": dcp_s, "bytes": dcp_bytes}
+
+
+# ---- phase 22: orbax checkpoints, read and written without orbax ---------------
+
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_jax", "checkpoint-1.orbax")
+ORBAX_EXPECTED = os.path.join("tests", "data", "orbax_jax_expected.npz")
+
+
+def _flat_leaves(torch, tree, path=()) -> dict:
+    """{key: array} of a JAX-layout tree as the committed expected ``.npz``
+    holds it (``tests/test_torch_port_orbax.py``'s ``flat``)."""
+    if isinstance(tree, dict) and tree:
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(torch, v, path + (k,)))
+        return out
+    key = "/".join(path)
+    if isinstance(tree, dict):
+        return {f"{key}#empty": np.zeros(0)}
+    if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:
+            return {f"{key}#bfloat16": tree.view(torch.int16).numpy()}
+        return {key: tree.numpy()}
+    return {f"{key}#scalar": np.asarray(tree)}
+
+
+def _orbax_diff(torch, got, want, path="") -> list:
+    """Paths where the host tree ``got`` differs from ``want`` (tensors on
+    any device, bit for bit, one leaf on the card at a time)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path or "<root>"]
+        return [p for k in want for p in _orbax_diff(torch, got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, torch.Tensor):
+        ok = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and got.shape == want.shape and torch.equal(got.to(want.device), want))
+        return [] if ok else [path]
+    if isinstance(want, np.ndarray):  # the optax hyperparameters, 0-d
+        ok = (isinstance(got, torch.Tensor) and str(got.dtype) == f"torch.{want.dtype.name}"
+              and np.array_equal(got.numpy(), want))
+        return [] if ok else [path]
+    return [] if got == want and type(got) is type(want) else [path]
+
+
+def orbax_phase(torch, dk, glue, binf, tmp, dcp_read: dict):
+    """Orbax checkpoints (``train/orbax_format.py``, ``train/ocdbt.py``,
+    zstd through ``train/zstd.py``): (a) the committed JAX-written fixture
+    read bit-equal to its expected leaves; (b) a full-width fused-Adam
+    Trainer's state after two steps (731,945,857 params and both Adam
+    moments, float32: 8.78 GB) written by ``save_checkpoint_orbax`` (seconds
+    to return and to commit), its params read alone (seconds, GB/s, bytes
+    read against the params' stored bytes, within 1 %) and the whole state
+    (seconds), both bit-equal to the state written, beside phase 21's
+    params-only ``.dcp`` restore; (c) a 10 s request served from that
+    directory through ``best_checkpoint`` (300 launches of each glue
+    kernel; the waveform equal to the same weights served from memory);
+    (d) ``fit(resume=True)`` from it for one epoch of 2 steps (20 dropout
+    launches, a finite loss). The card's machine has no h5py, so ``fit``
+    reads seeded chunks from arrays (``loop.process_data`` returns
+    ``ChunkDataset.from_arrays``) instead of an HDF5 file. Returns
+    (dropout launches, glue launches)."""
+    from ml_music_style_transfer_tpu_torch.compat import weights
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as S
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train import loop as loop_mod
+    from ml_music_style_transfer_tpu_torch.train import ocdbt, orbax_format, zstd
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, stage_batch
+
+    t_phase = time.perf_counter()
+    print(f"orbax: zstd route ctypes on libzstd.so.1, version {zstd.version()}")
+    # (a) the committed fixture, compressed by tensorstore's zstd
+    root = os.path.dirname(os.path.abspath(__file__))
+    got = _flat_leaves(torch, orbax_format.read(os.path.join(root, ORBAX_FIXTURE)))
+    want = dict(np.load(os.path.join(root, ORBAX_EXPECTED)))
+    bad = sorted(set(got) ^ set(want)) or [k for k in want if got[k].dtype != want[k].dtype
+                                            or not np.array_equal(got[k], want[k])]
+    check(not bad, f"orbax: the JAX-written fixture differs at {bad[:5]}")
+    print(f"orbax: the JAX-written fixture read bit-equal to its expected leaves "
+          f"({len(want)} leaves: bf16, f32, int32, scalars, a 4-chunk array, an empty node)")
+
+    # (b) the full-width state
+    cuda = torch.device("cuda")
+    raw = host_arrays(16, seed=23)
+    cond_key, target_key = sorted(k for k in raw if k.startswith("spec_"))[:2]
+    batch = stage_batch({"midi": raw["pianoroll"], "onoff": raw["onoff"],
+                         "cond": np.ascontiguousarray(raw[cond_key].transpose(0, 2, 1)),
+                         "target": np.ascontiguousarray(raw[target_key].transpose(0, 2, 1)),
+                         "weight": np.ones((16,), np.float32)}, cuda)
+    del raw
+    exp_root = os.path.join(tmp, "runs")
+    cfg = TrainConfig(batch_size=16, epochs=2, exp_name="orbax")
+    tr = Trainer(ModelConfig(), cfg, exp_root=exp_root, device="cuda")
+    tr.init_state(0)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    check(n_params == FULL_WIDTH_PARAMS, f"orbax: {n_params} params")
+    for s in range(2):
+        tr.train_step(batch, s)
+    del batch
+    state = tr.jax_state_dict(1)
+    exp_dir = tr.exp_dir
+    os.makedirs(exp_dir)
+    exp = ckpt.ExperimentState(1, 1, "orbax")
+    exp.best_epoch, exp.best_loss = 1, -1.0  # the resumed epoch writes no checkpoint
+    exp.save(exp_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint_orbax(exp_dir, 1, state)
+    ret_s = time.perf_counter() - t0
+    ckpt.wait_for_async_saves()
+    commit_s = time.perf_counter() - t0
+    with ocdbt.Database(path) as db:
+        sizes = {k: (len(v) if isinstance(v, bytes) else v.length) for k, v in db.items()}
+    stored = sum(sizes.values())
+    params_stored = sum(n for k, n in sizes.items() if k.startswith(b"params."))
+    state_gb = 3 * 4 * n_params / 1e9
+    print(f"orbax: state {state_gb:.2f} GB (params + Adam moments, float32); "
+          f"save_checkpoint_orbax returned after {ret_s:.3f} s (page-locked staging), committed "
+          f"after {commit_s:.2f} s ({stored / 1e9:.3f} GB of zstd-1 chunks, {len(sizes)} keys)")
+
+    stats: dict = {}
+    t = time.perf_counter()
+    params = orbax_format.read(path, keys=("params",), stats=stats)["params"]
+    params_s = time.perf_counter() - t
+    diff = _orbax_diff(torch, params, state["params"])
+    check(not diff, f"orbax: the params-only read differs at {diff[:5]}")
+    read_b = stats["value_bytes"]
+    check(abs(read_b - params_stored) <= 0.01 * params_stored,
+          f"orbax: the params-only read read {read_b} B of {params_stored} B stored")
+    t = time.perf_counter()
+    whole = orbax_format.read(path)
+    whole_s = time.perf_counter() - t
+    diff = _orbax_diff(torch, whole, state)
+    check(not diff, f"orbax: the full read differs at {diff[:5]}")
+    params_gb = 4 * n_params / 1e9
+    print(f"orbax: params-only read {params_s:.2f} s ({params_gb / params_s:.2f} GB/s of "
+          f"params), {read_b / 1e9:.3f} GB read of {params_stored / 1e9:.3f} GB stored under "
+          f"params (+ {stats['node_bytes'] / 1e6:.3f} MB of B-tree), {stats['chunks']} chunks; "
+          f"full read {whole_s:.2f} s ({state_gb / whole_s:.2f} GB/s); both bit-equal to the "
+          f"state written (page cache warm); phase 21's .dcp params-only restore "
+          f"{dcp_read['s']:.2f} s, {dcp_read['bytes'] / 1e9:.3f} GB read")
+    served = weights.from_jax_params(state["params"])
+    del whole, params, state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a 10 s request served from the directory through best_checkpoint
+    check(ckpt.best_checkpoint(exp_dir) == (path, 1), "orbax: best_checkpoint")
+    midi, wav = binf.make_clip(tmp, "orbax", 10.0, 24)
+    S.clear_caches()
+    waves = {}
+    for what, kw in (("orbax", {}), ("memory", {"params": served})):
+        synth = S.AudioSynthesizer(exp_dir, midi, wav, model_cfg=ModelConfig(), device="cuda",
+                                   **kw)
+        glue.reset_launches()
+        t = time.perf_counter()
+        waves[what] = synth.synthesize_waveform(n_iter=N_ITER)
+        dt = time.perf_counter() - t
+        gl = counted(glue, N_ITER, f"orbax: request ({what})")
+        print(f"orbax: 10 s request, weights from {what}: {dt:.3f} s (the first builds the model)")
+        del synth
+    y = waves["orbax"]
+    check(y.ndim == 1 and y.shape[0] % 256 == 0 and y.shape[0] >= 9 * 44100
+          and bool(np.isfinite(y).all()), f"orbax: waveform shape {y.shape} or values")
+    check(np.array_equal(y, waves["memory"]),
+          "orbax: serving from the orbax directory differs from the same weights from memory")
+    del served, waves
+    S.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) fit resumes from it: one epoch of 2 steps and its evaluation
+    train_ds = ChunkDataset.from_arrays(host_arrays(32, seed=25), seed=0)
+    test_ds = ChunkDataset.from_arrays(host_arrays(16, seed=26), seed=1)
+    real = loop_mod.process_data
+    loop_mod.process_data = lambda *a, **k: (train_ds, test_ds)
+    dk.reset_launches()
+    try:
+        t = time.perf_counter()
+        _, exp = Trainer(ModelConfig(), cfg, exp_root=exp_root, device="cuda").fit(
+            "seeded-arrays", resume=True)
+        fit_s = time.perf_counter() - t
+    finally:
+        loop_mod.process_data = real
+    dropout = dk.LAUNCHES["dropout_apply"] + dk.LAUNCHES["dropout_grad"]
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 20,
+          f"orbax: dropout launches {dict(dk.LAUNCHES)} in the resumed epoch of 2 steps")
+    check(len(exp.loss_history) == 1 and bool(np.isfinite(exp.loss_history).all())
+          and bool(np.isfinite(exp.test_loss_history).all()),
+          f"orbax: resumed losses {exp.loss_history} {exp.test_loss_history}")
+    print(f"orbax: fit(resume=True) from {os.path.basename(path)}: init, read, load, 2 steps "
+          f"and the evaluation {fit_s:.2f} s, loss {exp.loss_history[0]:.6f}, test loss "
+          f"{exp.test_loss_history[-1]:.6f}; dropout launches 10 + 10 per step")
+    shutil.rmtree(exp_root)
+    print(f"orbax: phase 22 card time {time.perf_counter() - t_phase:.1f} s")
+    return dropout, 2 * gl
 
 
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
@@ -3088,11 +3301,20 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        ck_dropout, ck_gl = timed("21 (checkpoints, WAV decoder, profiles)", checkpoint_phase,
-                                  torch, dk, glue, binf, tmp)
+        ck_dropout, ck_gl, dcp_read = timed("21 (checkpoints, WAV decoder, profiles)",
+                                            checkpoint_phase, torch, dk, glue, binf, tmp)
     dropout_launches += ck_dropout
     gl_launches += ck_gl
     check(not any(fc.LAUNCHES.values()), "phase 21 launched the fused conv kernel")
+    synth_mod.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ob_dropout, ob_gl = timed("22 (orbax checkpoints)", orbax_phase, torch, dk, glue, binf,
+                                  tmp, dcp_read)
+    dropout_launches += ob_dropout
+    gl_launches += ob_gl
+    check(not any(fc.LAUNCHES.values()), "phase 22 launched the fused conv kernel")
     synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()

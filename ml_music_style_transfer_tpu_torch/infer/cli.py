@@ -7,7 +7,8 @@ plus ``--device`` (default ``cuda``; with no card it fails).
 The experiment dir is ./experiments/{exp_name}; without ``--checkpoint`` the
 checkpoint of the best_epoch named by its hyperparams.json is loaded: the
 port's ``checkpoint-{best_epoch}.pt`` or ``.dcp`` (of which only the served
-tree is read), the JAX package's ``.msgpack`` or the reference's ``.tar``
+tree is read), the JAX package's ``.msgpack`` or ``.orbax`` or the
+reference's ``.tar``
 (reference model/inference.py:112-124). On the card
 every CUDA kernel is built first (``utils/profiling
 .enable_persistent_compile_cache``; ``MMST_COMPILE_CACHE=0`` skips it).
@@ -34,9 +35,8 @@ def main(argv=None) -> None:
                    help="reproduce the reference MBRBlock's literal 2*x "
                         "behavior (forced automatically for .tar checkpoints)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="explicit checkpoint path (.pt, .dcp, JAX .msgpack or reference "
-                        ".tar); "
-                        "default resolves via hyperparams.json best_epoch")
+                   help="explicit checkpoint path (.pt, .dcp, JAX .msgpack or .orbax, or "
+                        "reference .tar); default resolves via hyperparams.json best_epoch")
     p.add_argument("--use-ema", action="store_true",
                    help="serve the EMA weights a run with --ema-decay checkpointed")
     p.add_argument("--cond-mode", choices=("aligned", "center"), default="aligned",

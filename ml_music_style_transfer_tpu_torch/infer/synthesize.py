@@ -20,8 +20,9 @@ seeded 0, so the waveform differs from the JAX package's by design.
 Weights come from the experiment's best checkpoint: the port's own
 ``checkpoint-{epoch}.pt`` or ``checkpoint-{epoch}.dcp`` (written by
 ``train/loop.py``), the JAX package's ``checkpoint-{epoch}.msgpack`` (read
-without flax) or a reference ``.tar``, or from an in-memory state_dict.
-Of a ``.pt``, ``.dcp`` or ``.msgpack`` only the ``params`` or
+without flax) or ``checkpoint-{epoch}.orbax`` (read without orbax) or a
+reference ``.tar``, or from an in-memory state_dict. Of a ``.pt``,
+``.dcp``, ``.msgpack`` or ``.orbax`` only the ``params`` or
 ``ema_params`` tree is read; the optimizer state is not. ``use_ema=True`` serves the EMA weights that a run
 with ``ema_decay`` checkpointed.
 
@@ -35,8 +36,7 @@ before. Every host<->device crossing of the serving path goes through
 ``_stage``/``_fetch`` (``TRANSFER_LOG`` records them). The whole-clip path
 runs one forward over the whole clip (``parallel/time_shard.py``); with a
 ``mesh`` its time axis is sharded over the ranks of one mesh axis and
-Griffin-Lim can be too (``parallel/gl_shard.py``). The JAX package's
-orbax directories raise ``NotImplementedError`` (ROADMAP item 7a).
+Griffin-Lim can be too (``parallel/gl_shard.py``).
 """
 from __future__ import annotations
 
@@ -209,11 +209,13 @@ def load_checkpoint_params(path: str, use_ema: bool = False, device="cpu"
                            ) -> dict[str, torch.Tensor]:
     """The served weights of a trained checkpoint as a state_dict: its
     ``params``, or its ``ema_params`` with ``use_ema``; nothing else of the
-    file is read. A ``.msgpack`` (JAX layout) is translated on
-    ``device``."""
+    file is read. A ``.msgpack`` or ``.orbax`` (JAX layout) is translated
+    on ``device``."""
     key = "ema_params" if use_ema else "params"
     params = ckpt.restore_checkpoint(path, keys=(key,))[key]
-    return from_jax_params(params, device=device) if path.endswith(".msgpack") else params
+    if path.endswith((".msgpack", ".orbax")):
+        return from_jax_params(params, device=device)
+    return params
 
 
 def cond_spec(audio: torch.Tensor, hp: DSPConfig = DEFAULT_DSP) -> tuple[torch.Tensor, int]:
@@ -297,7 +299,8 @@ class AudioSynthesizer:
     ):
         """``params``: a state_dict (torch tensors or numpy arrays, reference
         key names) to serve directly. Otherwise ``checkpoint_path`` (a port
-        ``.pt`` or ``.dcp``, a JAX ``.msgpack`` or a reference ``.tar``), or the
+        ``.pt`` or ``.dcp``, a JAX ``.msgpack`` or ``.orbax`` or a reference
+        ``.tar``), or the
         experiment's best checkpoint (``train/checkpoint.best_checkpoint``).
         ``use_ema``: serve the checkpoint's ``ema_params`` (a ``ValueError``
         where it has none: the run did not set --ema-decay). The built model

@@ -51,8 +51,8 @@ clips split over the ranks (``infer/bulk.py``), and a whole clip's forward
 0's card. ``--mesh-data`` must equal the launch's rank count.
 
 ``--checkpoint`` (default: the experiment's best) may be a port ``.pt`` or
-``.dcp``, a JAX ``.msgpack`` or a reference ``.tar``; only the served tree
-is read at start-up. ``--use-ema`` serves the EMA
+``.dcp``, a JAX ``.msgpack`` or ``.orbax`` or a reference ``.tar``; only the
+served tree is read at start-up. ``--use-ema`` serves the EMA
 weights of a run trained with ``--ema-decay``.
 """
 from __future__ import annotations

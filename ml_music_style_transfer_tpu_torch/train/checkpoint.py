@@ -7,7 +7,7 @@ checkpoint inference loads (model/train.py:202-208, inference.py:120-122).
 This module keeps that contract (``ExperimentState`` writes the same field
 names) and the JAX package's resume path.
 
-Three formats:
+Four formats:
   - ``checkpoint-{epoch}.pt`` (``torch.save``, the port's default) holds the
     JAX state's keys with the port's values: ``{"params": model
     state_dict (reference key names), "opt_state": ``optim.export_state``
@@ -35,12 +35,18 @@ Three formats:
     next save, a restore and ``wait_for_async_saves`` join it. A restore
     reads only the slices its template's placement needs, on any mesh;
     ``restore_checkpoint(path, keys=("params",))`` reads that one tree and
-    nothing else.
+    nothing else;
+  - ``checkpoint-{epoch}.orbax`` is the directory the JAX package's
+    ``save_checkpoint_sharded`` writes (orbax: an OCDBT store of zarr
+    arrays), read and written by ``train/orbax_format.py`` (no orbax,
+    tensorstore or JAX; zstd through ``train/zstd.py``). Like a
+    ``.msgpack`` its tree is in the JAX layout and ``restore_checkpoint``
+    returns it as it stands, ``keys=`` reading only those trees' chunks.
+    ``save_checkpoint_orbax`` writes one in the background, as
+    ``save_checkpoint_sharded`` does a ``.dcp``, from a whole-tensor state
+    (``Trainer.jax_state_dict``).
 Where one epoch has several, the ``.pt`` wins, then the ``.msgpack``, then
-the ``.dcp``. Orbax directories (``checkpoint-{epoch}.orbax``) that the JAX
-package wrote need orbax and a zstd decoder, which the card's machine
-lacks: a directory holding only those raises ``NotImplementedError``
-naming ROADMAP queue 1 item 7a.
+the ``.dcp``, then the ``.orbax``.
 """
 from __future__ import annotations
 
@@ -60,12 +66,11 @@ from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
-from . import flax_msgpack
+from . import flax_msgpack, orbax_format
 
-ORBAX_ITEM = ("ROADMAP queue 1 item 7a (reading orbax directories the JAX package "
-              "wrote)")
 FORMATS = {"torch": "pt", "msgpack": "msgpack"}
 SHARDED_EXT = "dcp"
+ORBAX_EXT = "orbax"
 
 
 class ExperimentState:
@@ -97,8 +102,8 @@ class ExperimentState:
 
 def checkpoint_path(exp_dir: str, epoch: int, fmt: str = "torch") -> str:
     """``checkpoint-{epoch}`` with the extension of ``fmt`` ("torch",
-    "msgpack" or "dcp")."""
-    ext = SHARDED_EXT if fmt == "dcp" else FORMATS[fmt]
+    "msgpack", "dcp" or "orbax")."""
+    ext = {"dcp": SHARDED_EXT, "orbax": ORBAX_EXT}.get(fmt) or FORMATS[fmt]
     return os.path.join(exp_dir, f"checkpoint-{epoch}.{ext}")
 
 
@@ -110,7 +115,7 @@ def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -
     its name."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown checkpoint format {fmt!r}; 'torch' or 'msgpack' "
-                         "('dcp': save_checkpoint_sharded)")
+                         "('dcp': save_checkpoint_sharded; 'orbax': save_checkpoint_orbax)")
     path = checkpoint_path(exp_dir, epoch, fmt)
     if fmt == "msgpack":
         return flax_msgpack.dump(state, path)
@@ -131,12 +136,14 @@ def restore_checkpoint(path: str, device="cpu", keys: Iterable[str] | None = Non
                        ) -> dict[str, Any]:
     """The dict a checkpoint holds, only its top-level ``keys`` where given
     (the rest is not read; a key it lacks raises ``ValueError``): a ``.pt``
-    or ``.dcp`` with its tensors whole, on ``device``; a ``.msgpack`` as its
-    flax tree of CPU tensors."""
-    if path.endswith(".orbax"):
-        raise NotImplementedError(f"{path}: reading orbax checkpoints waits for {ORBAX_ITEM}")
+    or ``.dcp`` with its tensors whole, on ``device``; a ``.msgpack`` or an
+    ``.orbax`` as its flax tree of CPU tensors (the JAX layout)."""
+    jax_layout = path.endswith((".msgpack", f".{ORBAX_EXT}"))
     if path.endswith(".msgpack"):
         state = flax_msgpack.load(path, keys)
+    elif path.endswith(f".{ORBAX_EXT}"):
+        _SAVER.wait()
+        state = orbax_format.read(path, keys)
     elif path.endswith(f".{SHARDED_EXT}"):
         state = _restore_host(path, keys)
     else:
@@ -149,7 +156,7 @@ def restore_checkpoint(path: str, device="cpu", keys: Iterable[str] | None = Non
             raise ValueError(
                 f"checkpoint {path} has no '{key}' tree"
                 + (" — was --ema-decay set during training?" if key == "ema_params" else ""))
-    if path.endswith(".msgpack"):
+    if jax_layout:
         return state
     dev = torch.device(device)
     return tree_map(lambda v: v.to(dev) if isinstance(v, torch.Tensor) else v, state)
@@ -290,9 +297,39 @@ def save_checkpoint_sharded(exp_dir: str, epoch: int, state: dict,
     return path
 
 
+def _flush_orbax(box: list, path: str) -> str:
+    """Write the staged state ``box`` holds as an orbax directory (it
+    commits by its rename); the box is emptied as in ``_flush``."""
+    return orbax_format.write(path, box.pop())
+
+
+def save_checkpoint_orbax(exp_dir: str, epoch: int, state: dict, wait: bool = False,
+                          buffers: dict | None = None) -> str:
+    """Write ``state`` (whole tensors in the JAX layout,
+    ``Trainer.jax_state_dict``) as ``checkpoint-{epoch}.orbax``, the
+    counterpart of the JAX package's ``save_checkpoint_sharded``: returns
+    once ``state`` is copied to the host (into ``buffers`` where given, as
+    in ``save_checkpoint_sharded``) and the write goes on in the
+    background into ``checkpoint-{epoch}.orbax.tmp``, renamed on commit.
+    The next save, a restore and ``wait_for_async_saves`` join it;
+    ``wait=True`` joins it here. On a mesh one rank calls it."""
+    _SAVER.wait()
+    path = os.path.abspath(checkpoint_path(exp_dir, epoch, "orbax"))
+    box = [_SAVER.stage(state, {} if buffers is None else buffers)]
+    if _SAVER.executor is None:
+        _SAVER.executor = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="checkpoint-flush")
+    _SAVER.pending = (_SAVER.executor.submit(_flush_orbax, box, path), None)
+    del box
+    if wait:
+        _SAVER.wait()
+    return path
+
+
 def wait_for_async_saves() -> None:
     """Join the background write of the last ``save_checkpoint_sharded``
-    (on a mesh every rank calls it); it raises what the write raised."""
+    or ``save_checkpoint_orbax`` (on a mesh every rank calls it); it raises
+    what the write raised."""
     _SAVER.wait()
 
 
@@ -347,7 +384,8 @@ def _restore_host(path: str, keys: Iterable[str] | None = None) -> dict:
     return tree
 
 
-# the JAX package's names for the host reads of an orbax directory
+# the JAX package's names for the host reads of an orbax directory (here
+# of a .dcp too)
 def restore_checkpoint_sharded_host(path: str) -> dict:
     return restore_checkpoint(path)
 
@@ -365,23 +403,14 @@ def _epochs(exp_dir: str, ext: str) -> dict[int, str]:
     return out
 
 
-def _orbax_unreadable(path: str) -> NotImplementedError:
-    return NotImplementedError(f"{path} is an orbax checkpoint; reading it waits for "
-                               f"{ORBAX_ITEM}")
-
-
 def latest_checkpoint(exp_dir: str) -> tuple[str, int] | None:
     """(path, epoch) of the newest committed checkpoint in exp_dir (for one
-    epoch the .pt, else the .msgpack, else the .dcp; a ``.dcp.tmp`` that
-    never committed is no checkpoint), or None. Where the newest is an
-    orbax checkpoint (the JAX package's answer, ``train/checkpoint.py``
-    ``latest_checkpoint``) it raises NotImplementedError; an orbax
-    checkpoint of the same epoch as another loses to it, as in JAX."""
-    found = {**_epochs(exp_dir, SHARDED_EXT), **_epochs(exp_dir, "msgpack"),
-             **_epochs(exp_dir, "pt")}
-    orbax = _epochs(exp_dir, "orbax")
-    if orbax and max(orbax) > max(found, default=-1):
-        raise _orbax_unreadable(orbax[max(orbax)])
+    epoch the .pt, else the .msgpack, else the .dcp, else the .orbax: an
+    orbax checkpoint of the same epoch as a msgpack loses to it, as in the
+    JAX package's ``latest_checkpoint``; a ``.dcp.tmp`` or ``.orbax.tmp``
+    that never committed is no checkpoint), or None."""
+    found = {**_epochs(exp_dir, ORBAX_EXT), **_epochs(exp_dir, SHARDED_EXT),
+             **_epochs(exp_dir, "msgpack"), **_epochs(exp_dir, "pt")}
     if found:
         epoch = max(found)
         return found[epoch], epoch
@@ -391,21 +420,17 @@ def latest_checkpoint(exp_dir: str) -> tuple[str, int] | None:
 def best_checkpoint(exp_dir: str) -> tuple[str, int]:
     """The checkpoint inference should load, via hyperparams.json's
     best_epoch: ``checkpoint-{best}.pt``, else ``.msgpack``, else ``.dcp``,
-    else the reference's own ``checkpoint-{best}.tar`` (train.py:202-204),
-    else the newest committed checkpoint (a best-epoch save lost in a
-    crash, or an asynchronous one that never committed; with a warning).
-    Where the JAX package's ``best_checkpoint`` would answer an orbax
-    checkpoint (``checkpoint-{best}.orbax``, before the ``.tar``, or the
-    newest) it raises NotImplementedError."""
+    else ``.orbax``, else the reference's own ``checkpoint-{best}.tar``
+    (train.py:202-204), else the newest committed checkpoint (a best-epoch
+    save lost in a crash, or an asynchronous one that never committed;
+    with a warning): the JAX package's order, with the port's formats
+    first."""
     with open(os.path.join(exp_dir, "hyperparams.json")) as f:
         best = json.load(f)["best_epoch"]  # all inference reads (inference.py:120-122)
     for path in (checkpoint_path(exp_dir, best), checkpoint_path(exp_dir, best, "msgpack"),
-                 checkpoint_path(exp_dir, best, "dcp"),
-                 os.path.join(exp_dir, f"checkpoint-{best}.orbax"),
+                 checkpoint_path(exp_dir, best, "dcp"), checkpoint_path(exp_dir, best, "orbax"),
                  os.path.join(exp_dir, f"checkpoint-{best}.tar")):
         if os.path.exists(path):
-            if path.endswith(".orbax"):
-                raise _orbax_unreadable(path)
             return path, best
     latest = latest_checkpoint(exp_dir)
     if latest is None:

@@ -7,7 +7,7 @@ flags, plus ``--device`` (default ``cuda``; with no card it fails).
         [--width-mult F] [--spectral-loss W] [--stream-bf16] [--device-resident] \
         [--adam-mu-dtype bfloat16] [--adam-nu-dtype bfloat16] [--grads-dtype bfloat16] \
         [--grad-clip-norm X] [--warmup-steps N] [--ema-decay D] [--grad-accum K] \
-        [--ckpt-format torch|msgpack|dcp] [--device D] \
+        [--ckpt-format torch|msgpack|dcp|orbax] [--device D] \
         [--mesh-data N] [--mesh-model M] [--zero-opt] [--store-sharding replicated|data]
 
 Reading the HDF5 dataset needs ``h5py``. ``--device-resident`` keeps the
@@ -17,7 +17,8 @@ assembles each batch there. The optimizer options are the JAX package's
 ``checkpoint-{epoch}.msgpack``, which its ``restore_checkpoint`` reads, and
 ``--ckpt-format dcp`` a sharded ``checkpoint-{epoch}.dcp`` directory
 (``torch.distributed.checkpoint``), written in the background while
-training goes on, each rank of a mesh its own slices.
+training goes on, each rank of a mesh its own slices. ``--resume`` reads
+any of these and the JAX package's orbax directories.
 ``--debug-nans`` trains under ``utils/profiling.nan_debugging``: the first
 operator that outputs a NaN raises ``FloatingPointError`` naming it (the
 JAX package's ``jax_debug_nans``). Every CUDA kernel is built before the
@@ -33,9 +34,9 @@ mesh's rank count (data x model) must equal the launch's:
 dims (TP), ``--zero-opt`` the optimizer state over the data axis (ZeRO-1),
 and ``--store-sharding data`` splits a ``--device-resident`` store's rows
 over the data axis. ``--device cpu`` runs the ranks on the CPU (gloo).
-``--ckpt-format orbax`` is refused with ``NotImplementedError`` naming
-ROADMAP item 7a (reading orbax directories the JAX package wrote); the
-sharded asynchronous checkpoints it stands for are ``dcp``. Reference CLI:
+``--ckpt-format orbax`` writes the JAX package's orbax directories
+(``checkpoint-{epoch}.orbax``) in the background; ``dcp`` writes each
+rank's own slices. Reference CLI:
 model/train.py:211-220.
 """
 from __future__ import annotations
@@ -98,8 +99,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="'torch': checkpoint-{epoch}.pt via torch.save (the port's "
                         "format); 'msgpack': the JAX package's flax msgpack; 'dcp': "
                         "sharded asynchronous checkpoint-{epoch}.dcp directories; "
-                        "'orbax' is refused (the JAX package's orbax directories "
-                        "need orbax)")
+                        "'orbax': the JAX package's checkpoint-{epoch}.orbax "
+                        "directories, written in the background")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
     return p

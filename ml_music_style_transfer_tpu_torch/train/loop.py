@@ -25,8 +25,9 @@ Reference model/train.py:125-208, on one card:
     the optimizer is ``torch.optim.Adam`` (fused on the card);
   - ReduceLROnPlateau on the test loss, best-on-test-loss checkpoints
     (``checkpoint-{epoch}.pt``, the JAX package's flax msgpack with
-    ``checkpoint_format="msgpack"``, or a sharded asynchronous
-    ``checkpoint-{epoch}.dcp`` with ``"dcp"``), the reference's
+    ``checkpoint_format="msgpack"``, a sharded asynchronous
+    ``checkpoint-{epoch}.dcp`` with ``"dcp"``, or the JAX package's orbax
+    directory, written in the background, with ``"orbax"``), the reference's
     hyperparams.json contract, a ``metrics.jsonl`` stream and resume from
     the newest checkpoint of any format. With ``ema_decay`` set, ``fit``
     evaluates the EMA weights, ranks epochs by them and checkpoints them as
@@ -35,7 +36,6 @@ Reference model/train.py:125-208, on one card:
 Unlike the JAX Trainer, which threads (params, opt_state) through pure
 jitted steps, this one holds the model and optimizer and updates them in
 place. ``init_state`` (or ``fit``) builds both; the other methods use them.
-The JAX package's orbax directories raise ``NotImplementedError``.
 
 On a mesh (``mesh=``, or ``TrainConfig.mesh_shape`` other than (1, 1),
 built over the launch's ranks by ``parallel/mesh.make_mesh``) each rank
@@ -52,7 +52,7 @@ the batch axes ``data``, or ``dcn`` x ``data``):
     nothing (one device, as the JAX Trainer's 1-wide data axis);
   - dropout: data rank d draws with ``dropout.fold_seed(seed, d)``, so the
     masks differ across data ranks while rank 0 draws one device's masks;
-  - ``.pt`` and ``.msgpack`` checkpoints hold whole tensors: saving
+  - ``.pt``, ``.msgpack`` and ``.orbax`` checkpoints hold whole tensors: saving
     gathers the TP slices and the ZeRO slices of the optimizer state
     (every rank takes part, rank 0 writes), and a resume gives each rank
     its slices again. A ``.dcp`` gathers nothing: each rank writes the
@@ -299,7 +299,8 @@ class Trainer:
 
     def load_state(self, state: dict) -> None:
         """Load a ``state_dict`` (from a .pt) or a JAX-layout state (from a
-        msgpack the JAX package or ``jax_state_dict`` wrote). On a mesh
+        msgpack or orbax directory the JAX package or ``jax_state_dict``
+        wrote). On a mesh
         each rank keeps its slices of the whole tensors."""
         if "params" in state["params"]:  # a flax tree: {"params": {...}}
             self.model.load_state_dict(weights.from_jax_params(state["params"]))
@@ -521,19 +522,20 @@ class Trainer:
         directory, its logs and the checkpoints.
 
         ``checkpoint_format``: "torch" (``checkpoint-{epoch}.pt``),
-        "msgpack" (the JAX package's format, ``jax_state_dict``) or "dcp"
+        "msgpack" (the JAX package's format, ``jax_state_dict``), "dcp"
         (``checkpoint-{epoch}.dcp``, ``sharded_state_dict``: written in the
         background while training goes on, each rank its own slices, from
         page-locked host buffers the run reuses and frees when it ends; the
-        next save and the end of ``fit`` join the write); "orbax" raises.
-        A resume restores a ``.dcp`` into this Trainer's placement. With
+        next save and the end of ``fit`` join the write) or "orbax" (the
+        JAX package's ``checkpoint-{epoch}.orbax``, ``jax_state_dict``,
+        written in the background in the same way by rank 0). A resume
+        restores a ``.dcp`` into this Trainer's placement, and reads any
+        other format whole (each rank keeps its slices). With
         ``ema_decay`` set the EMA weights are evaluated, ranked and written
         as ``ema_params``.
         """
         check_placement(store_sharding)
-        if checkpoint_format == "orbax":
-            raise NotImplementedError(f"checkpoint_format='orbax' waits for {ckpt.ORBAX_ITEM}")
-        if checkpoint_format not in (*ckpt.FORMATS, "dcp"):
+        if checkpoint_format not in (*ckpt.FORMATS, "dcp", "orbax"):
             raise ValueError(f"unknown checkpoint_format {checkpoint_format!r}")
         if self.is_main:
             os.makedirs(self.exp_root, exist_ok=True)
@@ -596,7 +598,7 @@ class Trainer:
         self.dropout_gen = torch.Generator().manual_seed(self.cfg.seed)
         metrics = MetricsLogger(os.path.join(self.exp_dir, "metrics.jsonl")
                                 if self.is_main else None)
-        staging: dict = {}  # host buffers of the .dcp saves, reused for the run
+        staging: dict = {}  # host buffers of the background saves, reused for the run
         print("start training")
         for epoch in range(start_epoch, self.cfg.epochs):
             t_epoch = time.time()
@@ -630,6 +632,11 @@ class Trainer:
                         ckpt.save_checkpoint_sharded(self.exp_dir, epoch + 1,
                                                      self.sharded_state_dict(epoch + 1),
                                                      buffers=staging)
+                    elif checkpoint_format == "orbax":  # gathered, rank 0 writes
+                        state = self.jax_state_dict(epoch + 1)
+                        if self.is_main:
+                            ckpt.save_checkpoint_orbax(self.exp_dir, epoch + 1, state,
+                                                       buffers=staging)
                     else:
                         state = (self.jax_state_dict(epoch + 1) if checkpoint_format == "msgpack"
                                  else self.state_dict(epoch + 1))
@@ -641,7 +648,7 @@ class Trainer:
                     if self.is_main:
                         exp.save(self.exp_dir)
                     metrics.log("checkpoint", epoch=epoch + 1, best_loss=test_loss)
-        if checkpoint_format == "dcp":
+        if checkpoint_format in ("dcp", "orbax"):
             ckpt.wait_for_async_saves()
             staging.clear()  # the run's page-locked copy of the state
         metrics.close()

@@ -68,12 +68,13 @@ class TestStftAtOtherHops:
 
 
 def _mixed_dir(root, best_epoch=5):
-    """checkpoint-3.msgpack (JAX-written), checkpoint-5.orbax/, hyperparams
-    with ``best_epoch``."""
+    """checkpoint-3.msgpack and checkpoint-5.orbax, both written by the JAX
+    package, and hyperparams with ``best_epoch``."""
     d = str(root)
     os.makedirs(d, exist_ok=True)
     jckpt.save_checkpoint(d, 3, {"epoch": 3})
-    os.makedirs(os.path.join(d, "checkpoint-5.orbax"))
+    jckpt.save_checkpoint_sharded(d, 5, {"epoch": 5, "w": np.arange(6, dtype=np.float32)},
+                                  wait=True)
     exp = jckpt.ExperimentState(5, 1, "x")
     exp.best_epoch = best_epoch
     exp.save(d)
@@ -83,14 +84,18 @@ def _mixed_dir(root, best_epoch=5):
 class TestMixedCheckpointDirectories:
     @pytest.mark.parametrize("fn", ["latest_checkpoint", "best_checkpoint"])
     def test_an_orbax_answer_raises(self, fn, tmp_path, capsys):
-        """Where JAX answers the orbax checkpoint, the port raises naming
-        item 7a, with no false "missing" warning, and never falls back to
-        the older msgpack."""
+        """Where JAX answers the orbax checkpoint, the port answers it too
+        (it used to raise, before orbax directories were read), with no
+        false "missing" warning and no fall-back to the older msgpack, and
+        reads it as JAX restores it."""
         d = _mixed_dir(tmp_path)
-        assert getattr(jckpt, fn)(d) == (os.path.join(d, "checkpoint-5.orbax"), 5)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7a"):
-            getattr(ckpt, fn)(d)
+        want = (os.path.join(d, "checkpoint-5.orbax"), 5)
+        assert getattr(jckpt, fn)(d) == getattr(ckpt, fn)(d) == want
         assert "missing" not in capsys.readouterr().out
+        got = ckpt.restore_checkpoint(want[0])
+        jax_got = jckpt.restore_checkpoint_sharded_host(want[0])
+        assert got["epoch"] == jax_got["epoch"] == 5
+        assert np.array_equal(got["w"].numpy(), jax_got["w"])
 
     def test_a_readable_answer_is_the_jax_answer(self, tmp_path):
         """best_epoch 3: both answer the msgpack; a newer msgpack beside an

@@ -325,8 +325,9 @@ class TestCheckpoint:
         assert ckpt.best_checkpoint(d)[0].endswith("checkpoint-2.pt")
 
     def test_jax_formats_only_raise(self, tmp_path):
-        """A JAX msgpack resolves and reads (item 7); a directory holding
-        only orbax checkpoints still raises, naming item 7a."""
+        """A JAX msgpack resolves and reads (item 7); so does a directory
+        holding only orbax checkpoints (item 7a; it used to raise): the
+        JAX package's answers, read as it restores them."""
         d = str(tmp_path)
         path = jckpt.save_checkpoint(d, 3, {"epoch": 3})
         exp = jckpt.ExperimentState(5, 1, "x")
@@ -335,13 +336,34 @@ class TestCheckpoint:
         assert ckpt.latest_checkpoint(d) == (path, 3) == ckpt.best_checkpoint(d)
         assert ckpt.restore_checkpoint(path) == {"epoch": 3}
         o = str(tmp_path / "orbax")
-        os.makedirs(os.path.join(o, "checkpoint-2.orbax"))
+        opath = jckpt.save_checkpoint_sharded(o, 2, {"epoch": 2, "scheduler": {"lr": 0.5}},
+                                              wait=True)
         exp.best_epoch = 2
         exp.save(o)
-        for fn in (ckpt.latest_checkpoint, ckpt.best_checkpoint):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7a"):
-                fn(o)
+        for fn in ("latest_checkpoint", "best_checkpoint"):
+            assert getattr(ckpt, fn)(o) == getattr(jckpt, fn)(o) == (opath, 2)
+        assert ckpt.restore_checkpoint(opath) == jckpt.restore_checkpoint_sharded_host(opath) \
+            == {"epoch": 2, "scheduler": {"lr": 0.5}}
         assert ckpt.latest_checkpoint(str(tmp_path / "empty")) is None
+
+
+def _assert_jax_restores(path, want):
+    """The JAX package's host restore of an orbax directory is ``want``
+    (numpy leaves), leaf for leaf."""
+    got = jckpt.restore_checkpoint_sharded_host(path)
+
+    def eq(a, b, where):
+        if isinstance(b, dict):
+            assert isinstance(a, dict) and set(a) == set(b), where
+            for k in b:
+                eq(a[k], b[k], f"{where}/{k}")
+        elif isinstance(b, np.ndarray):
+            a = np.asarray(a)
+            assert a.dtype == b.dtype and np.array_equal(a, b), where
+        else:
+            assert type(a) is type(b) and a == b, where
+
+    eq(got, want, "")
 
 
 @pytest.fixture(scope="module")
@@ -389,24 +411,38 @@ class TestFit:
         y = synth.synthesize_waveform(n_iter=2)
         assert y.ndim == 1 and len(y) > 44100 and np.all(np.isfinite(y))
 
-    def test_fit_resume_refuses_a_newer_orbax_checkpoint(self, tiny_h5, tmp_path, monkeypatch):
+    def test_fit_resume_refuses_a_newer_orbax_checkpoint(self, tiny_h5, tmp_path, monkeypatch,
+                                                         capsys):
         """A run directory holding checkpoint-3.msgpack and a newer
-        checkpoint-5.orbax: the JAX package's resume takes the orbax one
-        (its ``latest_checkpoint``); the port's raises naming item 7a
-        instead of resuming the older msgpack."""
+        checkpoint-5.orbax of a JAX Trainer's state (optax's tuples): the
+        JAX package's resume takes the orbax one (its
+        ``latest_checkpoint``), and so does the port's (it used to raise),
+        with that state's weights, and trains the next epoch."""
         monkeypatch.chdir(tmp_path)
         d = os.path.join("experiments", "mixed")
         os.makedirs(d)
         jckpt.save_checkpoint(d, 3, {"epoch": 3})
-        os.makedirs(os.path.join(d, "checkpoint-5.orbax"))
+        jtr = JTrainer(JModelConfig(**TINY_KW), JTrainConfig(batch_size=2),
+                       use_native_loader=False)
+        src = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2), device="cpu")
+        src.init_state(4)
+        params = {"params": jax.tree_util.tree_map(
+            np.asarray, src.jax_state_dict(5)["params"]["params"])}
+        jckpt.save_checkpoint_sharded(d, 5, {
+            "params": params, "opt_state": jax.jit(jtr.tx.init)(params), "epoch": 5,
+            "scheduler": jtr.scheduler.state_dict()}, wait=True)
         exp = jckpt.ExperimentState(6, 1, "mixed")
         exp.best_epoch = 5
         exp.save(d)
         assert jckpt.latest_checkpoint(d) == (os.path.join(d, "checkpoint-5.orbax"), 5)
         tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(epochs=6, exp_name="mixed",
                                                          batch_size=2), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7a"):
-            tr.fit(tiny_h5, resume=True)
+        orig = tr.load_state
+        loaded = []
+        tr.load_state = lambda state: (loaded.append(state["epoch"]), orig(state))
+        _, exp = tr.fit(tiny_h5, resume=True)
+        assert loaded == [5] and "resumed from" in capsys.readouterr().out
+        assert len(exp.loss_history) == 1 and np.isfinite(exp.loss_history[0])
 
     def test_fit_refuses_what_is_not_ported(self, tiny_h5, tmp_path, monkeypatch):
         """The device-resident path (item 6) has landed: ``fit`` and the
@@ -415,7 +451,9 @@ class TestFit:
         raises. The mesh and ZeRO (item 9) have landed: a mesh the launch
         has no ranks for raises ValueError, and so does an unknown store
         placement. --debug-nans (item 10) has landed: the CLI trains under
-        NaN debugging with no false positive."""
+        NaN debugging with no false positive. Orbax (item 7a) has landed
+        too: ``checkpoint_format="orbax"`` and ``--ckpt-format orbax`` (both
+        used to raise) write directories the JAX package restores."""
         tr = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2), exp_root=str(tmp_path),
                      device="cpu")
         with pytest.raises(ValueError, match="store-audio"):
@@ -436,16 +474,28 @@ class TestFit:
         assert np.isfinite(tr.evaluate_resident(store))
         with pytest.raises(ValueError, match="unknown store_sharding"):
             tr.fit(tiny_h5, store_sharding="rows")
-        with pytest.raises(NotImplementedError, match="item 7a"):
-            tr.fit(tiny_h5, checkpoint_format="orbax")
+        otr = Trainer(ModelConfig(**TINY_KW), TrainConfig(batch_size=2, exp_name="o"),
+                      exp_root=str(tmp_path), device="cpu")
+        otr.fit(tiny_h5, checkpoint_format="orbax")
+        opath = ckpt.checkpoint_path(os.path.join(str(tmp_path), "o"), 1, "orbax")
+        _assert_jax_restores(opath, ckpt.tree_map(
+            lambda v: v.numpy() if isinstance(v, torch.Tensor) else v, otr.jax_state_dict(1)))
         for flags, err, msg in (
                 (["--mesh-data", "2"], ValueError, "needs 2 ranks, the launch has 1"),
-                (["--mesh-model", "2", "--zero-opt"], ValueError, "needs 2 ranks"),
-                (["--ckpt-format", "orbax"], NotImplementedError, "item 7a")):
+                (["--mesh-model", "2", "--zero-opt"], ValueError, "needs 2 ranks")):
             with pytest.raises(err, match=msg):
                 train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "r"]
                                + flags)
         monkeypatch.chdir(tmp_path)
+        train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "co",
+                        "--batch-size", "2", "--width-mult", str(1 / 16),
+                        "--ckpt-format", "orbax"])
+        cdir = str(tmp_path / "experiments" / "co")
+        cpath, _ = ckpt.best_checkpoint(cdir)
+        assert cpath.endswith("checkpoint-1.orbax") and jckpt.best_checkpoint(cdir)[0] == cpath
+        _assert_jax_restores(cpath, ckpt.tree_map(
+            lambda v: v.numpy() if isinstance(v, torch.Tensor) else v,
+            ckpt.restore_checkpoint(cpath)))
         train_cli.main(["-data-dir", tiny_h5, "--device", "cpu", "-exp-name", "d",
                         "--batch-size", "2", "--width-mult", str(1 / 16), "--debug-nans"])
         assert ckpt.latest_checkpoint(str(tmp_path / "experiments" / "d")) is not None
