@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving, training and data paths, its
 optimizer options and checkpoints, the autoencoder family, its deployment
 programs, support code and daemon soak, its multi-device layer, its sharded
-asynchronous checkpoints, WAV decoder and profile scripts, and its fused
-conv-block kernel on one NVIDIA GPU and check them. Each phase
+asynchronous checkpoints, WAV decoder and profile scripts, its orbax
+checkpoints (on one device and on a mesh), and its fused conv-block kernel
+on one NVIDIA GPU and check them. Each phase
 prints its seconds.
 
     python3 chip_smoke.py
@@ -211,6 +212,23 @@ scipy and the standard library. Phases, each reported on its own lines:
      same weights served from memory); ``fit(resume=True)`` from it, one
      epoch of 2 steps on seeded chunks (20 dropout launches, finite
      losses); the phase's seconds;
+  23. orbax checkpoints on a mesh (``orbax_mesh_phase``): a full-width
+     fused-Adam ``Trainer`` on a (1, 1) NCCL mesh with ZeRO-1 takes two
+     steps (10 + 10 dropout launches each) and saves through ``fit``'s
+     mesh path, ``save_checkpoint_orbax(orbax_state)`` (seconds to return
+     and to commit; one ``ocdbt.process_0/``), its whole read bit-equal to
+     ``jax_state_dict``; then this process plays the 4 ranks of a (2, 2)
+     ZeRO-1 mesh in turn (each rank's blocks cut on the card with the
+     placements of a (2, 2) checkpoint mesh computed with no process
+     group, ``write_shards``, seconds each; then ``commit``): the whole
+     read bit-equal to the (1, 1) mesh's, each rank's region read
+     bit-equal to its blocks with its bytes read within 1 % of the stored
+     bytes of the chunks that meet them (seconds; its share of the state);
+     a 10 s request served from that directory through
+     ``best_checkpoint`` equal to the same weights from memory (300
+     launches of each glue kernel); ``fit(resume=True)`` from it on the
+     (1, 1) mesh, one epoch of 2 steps (20 dropout launches, finite
+     losses);
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -231,12 +249,13 @@ own process. The glue kernels' ``launches`` in the kernels' JSON record sum
 their counts over phases 4, 6-9, 15 (three requests), 17 (the programs and
 the live runs they are held to), 17b (the packages' runs, the timing and
 profiled runs), 18, 19 (the soak), 20 (sharded Griffin-Lim, two whole
-clips and two bulk clips), 21 (three requests, 120 daemon requests) and
-22 (two requests), the dropout kernel's
+clips and two bulk clips), 21 (three requests, 120 daemon requests), 22
+and 23 (two requests each), the dropout kernel's
 over phases 11 (12 steps), 13 (the resident epoch and the evaluation), 14
 (12 steps), 15 (4 microbatch calls and 24 timed steps), 18 (8 steps, 2 of
 them NaN-debugged), 20 (the mesh step), 21 (the steps around the
-saves) and 22 (the resumed epoch's 2 steps). The
+saves), 22 (the resumed epoch's 2 steps) and 23 (the mesh's 2 steps and
+the resumed epoch's 2). The
 line before the last is the card's name and power limit, the one before it
 the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, and
@@ -249,6 +268,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2973,7 +2993,7 @@ def orbax_phase(torch, dk, glue, binf, tmp, dcp_read: dict):
     t = time.perf_counter()
     whole = orbax_format.read(path)
     whole_s = time.perf_counter() - t
-    diff = _orbax_diff(torch, whole, state)
+    diff = _orbax_diff(torch, whole, weights.flax_state_dict(state))
     check(not diff, f"orbax: the full read differs at {diff[:5]}")
     params_gb = 4 * n_params / 1e9
     print(f"orbax: params-only read {params_s:.2f} s ({params_gb / params_s:.2f} GB/s of "
@@ -3036,6 +3056,259 @@ def orbax_phase(torch, dk, glue, binf, tmp, dcp_read: dict):
           f"{exp.test_loss_history[-1]:.6f}; dropout launches 10 + 10 per step")
     shutil.rmtree(exp_root)
     print(f"orbax: phase 22 card time {time.perf_counter() - t_phase:.1f} s")
+    return dropout, 2 * gl
+
+
+# ---- phase 23: orbax checkpoints on a mesh, each rank its own shards ----------
+
+MESH_23 = {"data": 2, "model": 2}  # the mesh whose 4 ranks one process plays
+
+
+def _chunk_sizes(path: str) -> tuple[dict, dict]:
+    """({key: stored bytes}, {array name: its .zarray}) of the root
+    database's listing of the orbax directory at ``path``."""
+    from ml_music_style_transfer_tpu_torch.train import ocdbt
+
+    with ocdbt.Database(path) as db:
+        items = list(db.items())
+        sizes = {k: len(v) if isinstance(v, bytes) else v.length for k, v in items}
+        zarrays = {k[:-len(b"/.zarray")].decode(): json.loads(db.read(v))
+                   for k, v in items if k.endswith(b"/.zarray")}
+    return sizes, zarrays
+
+
+def _chunk_bytes(listing: tuple[dict, dict], regions: dict, tops) -> tuple[int, int]:
+    """(stored bytes of the chunks that meet each region's box, and of the
+    ``.zarray``s, under the top-level trees ``tops``; stored bytes of every
+    chunk there), from a directory's ``_chunk_sizes``."""
+    sizes, zarrays = listing
+    meet = whole = 0
+    for name, z in zarrays.items():
+        keys = tuple(name.split("."))
+        if keys[0] not in tops:
+            continue
+        whole += sum(n for k, n in sizes.items() if k.startswith(f"{name}/".encode()))
+        meet += sizes[f"{name}/.zarray".encode()]
+        lo, size = regions.get(keys, ((0,) * len(z["shape"]), z["shape"]))
+        ranges = [range(o // c, -(-(o + n) // c)) for o, n, c in zip(lo, size, z["chunks"])]
+        for g in itertools.product(*ranges) if int(np.prod(size)) else []:
+            meet += sizes[f"{name}/{'.'.join(map(str, g)) if g else '0'}".encode()]
+    return meet, whole
+
+
+def orbax_mesh_phase(torch, dk, glue, binf, tmp):
+    """Orbax checkpoints on a mesh (ROADMAP 7b/7c): (a) a full-width fused-Adam
+    ``Trainer`` on a (1, 1) NCCL mesh with ZeRO-1 takes two steps (10 + 10
+    dropout launches each) and saves through ``fit``'s mesh path,
+    ``save_checkpoint_orbax(orbax_state)`` (seconds to return and to
+    commit; one ``ocdbt.process_0/``), its whole read bit-equal to
+    ``jax_state_dict`` of the same state; (b) this process plays the 4
+    ranks of a (2, 2) ZeRO-1 mesh in turn: each rank's blocks cut on the
+    card from that state (``loop.rank_orbax_state``: the placements of
+    ``parallel/mesh.placements`` on the (2, 2) checkpoint mesh, with no
+    process group) and written by ``orbax_format.write_shards`` (seconds
+    each), then ``commit``; the directory's whole read bit-equal to (a)'s,
+    each rank's region read bit-equal to its blocks, its bytes read within
+    1 % of the stored bytes of the chunks that meet its blocks (seconds,
+    and its share of the state's stored bytes); (c) a 10 s request served
+    from that directory through ``best_checkpoint`` equal to the same
+    weights from memory (300 launches of each glue kernel per request);
+    (d) ``fit(resume=True)`` from it on the (1, 1) mesh, one epoch of 2
+    steps (20 + 20 dropout launches, finite losses). Returns (dropout
+    launches, glue launches)."""
+    import torch.distributed as dist
+
+    from ml_music_style_transfer_tpu_torch.compat import weights
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
+    from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as S
+    from ml_music_style_transfer_tpu_torch.parallel import mesh as pmesh
+    from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train import loop as loop_mod
+    from ml_music_style_transfer_tpu_torch.train import orbax_format
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer, stage_batch
+
+    t_phase = time.perf_counter()
+    spans = {}  # what the phase's seconds went to
+
+    def span(name, t0):
+        spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+
+    cuda = torch.device("cuda")
+    pmesh.distributed_init("cuda", init_method=f"tcp://localhost:{pmesh.free_port()}",
+                           world_size=1, rank=0)
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    exp_root = os.path.join(tmp, "runs")
+
+    # (a) the (1, 1) mesh's save, fit's mesh path
+    raw = host_arrays(16, seed=27)
+    cond_key, target_key = sorted(k for k in raw if k.startswith("spec_"))[:2]
+    batch = stage_batch({"midi": raw["pianoroll"], "onoff": raw["onoff"],
+                         "cond": np.ascontiguousarray(raw[cond_key].transpose(0, 2, 1)),
+                         "target": np.ascontiguousarray(raw[target_key].transpose(0, 2, 1)),
+                         "weight": np.ones((16,), np.float32)}, cuda)
+    del raw
+    cfg = TrainConfig(batch_size=16, epochs=2, exp_name="mesh11", zero_opt=True)
+    tr = Trainer(ModelConfig(), cfg, exp_root=exp_root, device="cuda", mesh=mesh)
+    tr.init_state(0)
+    check(type(tr.optimizer).__name__ == "ZeroOptimizer", "orbax mesh: the Trainer has no ZeRO")
+    dk.reset_launches()
+    for s in range(2):
+        tr.train_step(tr.shard_batch(batch), s)
+    torch.cuda.synchronize()
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 20,
+          f"orbax mesh: dropout launches {dict(dk.LAUNCHES)} after 2 steps")
+    dropout = dk.LAUNCHES["dropout_apply"] + dk.LAUNCHES["dropout_grad"]
+    del batch
+    span("(a) trainer and 2 steps", t_phase)
+    os.makedirs(tr.exp_dir)
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint_orbax(tr.exp_dir, 1, tr.orbax_state(1))
+    ret_s = time.perf_counter() - t0
+    ckpt.wait_for_async_saves()
+    commit_s = time.perf_counter() - t0
+    check(sorted(d for d in os.listdir(path) if d.startswith("ocdbt.")) == ["ocdbt.process_0"],
+          f"orbax mesh: {sorted(os.listdir(path))}")
+    t = time.perf_counter()
+    whole = orbax_format.read(path)
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    diff = _orbax_diff(torch, whole, weights.flax_state_dict(tr.jax_state_dict(1)))
+    check(not diff, f"orbax mesh: the (1, 1) mesh's directory differs at {diff[:5]}")
+    span("(a) check", t)
+    spans["(a) save"], spans["(a) read"] = commit_s, read_s
+    print(f"orbax mesh: (a) (1, 1) NCCL mesh, ZeRO-1, full width: save_checkpoint_orbax of "
+          f"orbax_state returned after {ret_s:.3f} s, committed after {commit_s:.2f} s (one "
+          f"ocdbt.process_0/); whole read {read_s:.2f} s, bit-equal to jax_state_dict")
+
+    # (b) the 4 ranks of a (2, 2) ZeRO-1 mesh, played in turn
+    t = time.perf_counter()
+    state = tr.state_dict(1)
+    box = lambda tree: {k: (b.shape, b.offset, b.size, b.dtype, b.write)  # noqa: E731
+                        for k, b in orbax_format.shards(tree).items()}
+    check(box(loop_mod.rank_orbax_state(state, cfg, {"data": 1, "model": 1}, 0))
+          == box(tr.orbax_state(1)),
+          "orbax mesh: rank_orbax_state's blocks on the (1, 1) mesh differ from orbax_state's")
+    span("(b) state", t)
+    exp_dir = os.path.join(exp_root, "mesh22")
+    play = ckpt.checkpoint_path(exp_dir, 1, "orbax")
+    os.makedirs(f"{play}.tmp")
+    entries, blocks0 = [], None
+    for r in range(4):
+        t = time.perf_counter()
+        blocks = loop_mod.rank_orbax_state(state, cfg, MESH_23, r)
+        entries.append(orbax_format.write_shards(f"{play}.tmp", r, blocks))
+        span("(b) writes", t)
+        n = sum(math.prod(b.size) * b.data.element_size()
+                for b in orbax_format.shards(blocks).values() if b.write)
+        print(f"orbax mesh: (b) rank {r} of {MESH_23}: write_shards {time.perf_counter() - t:.2f} "
+              f"s ({n / 1e9:.3f} GB of blocks it writes, {len(entries[-1])} keys)")
+        if r == 0:
+            blocks0 = orbax_format.layout(blocks)
+        del blocks
+    t = time.perf_counter()
+    orbax_format.commit(f"{play}.tmp", play, blocks0, entries)
+    print(f"orbax mesh: (b) commit {time.perf_counter() - t:.2f} s")
+    again = orbax_format.read(play)
+    diff = _orbax_diff(torch, again, whole)
+    check(not diff, f"orbax mesh: the 4-rank directory's whole read differs from (a)'s at "
+                    f"{diff[:5]}")
+    del again, whole
+    span("(b) commit, whole read and check", t)
+    tops = ("params", "opt_state", "epoch", "scheduler")
+    listing = _chunk_sizes(play)
+    for r in range(4):
+        t_rank = time.perf_counter()
+        blocks = orbax_format.shards(loop_mod.rank_orbax_state(state, cfg, MESH_23, r))
+        stats = {}
+        t = time.perf_counter()
+        got = orbax_format.read(play, keys=tops, stats=stats,
+                                regions={k: (b.offset, b.size) for k, b in blocks.items()})
+        dt = time.perf_counter() - t
+        bad = []
+        for keys, b in blocks.items():
+            node = got
+            for k in keys:
+                node = node[k]
+            if node.dtype != b.dtype or not torch.equal(node.to(cuda), b.data):
+                bad.append(".".join(keys))
+        check(not bad, f"orbax mesh: rank {r}'s region read differs at {bad[:5]}")
+        meet, stored = _chunk_bytes(listing, {k: (b.offset, b.size) for k, b in blocks.items()},
+                                    tops)
+        check(abs(stats["value_bytes"] - meet) <= 0.01 * meet,
+              f"orbax mesh: rank {r} read {stats['value_bytes']} B, the chunks that meet its "
+              f"blocks hold {meet} B")
+        print(f"orbax mesh: (b) rank {r} region read {dt:.2f} s, {stats['value_bytes'] / 1e9:.3f}"
+              f" GB read ({stats['chunks']} chunks) of {stored / 1e9:.3f} GB stored: "
+              f"{stats['value_bytes'] / stored:.3f} of the state; bit-equal to its blocks")
+        del got, blocks
+        span("(b) region reads and checks", t_rank)
+    served = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a 10 s request served from the 4-rank directory
+    t_c = time.perf_counter()
+    exp = ckpt.ExperimentState(1, 1, "mesh22")
+    exp.best_epoch, exp.best_loss = 1, -1.0  # the resumed epoch writes no checkpoint
+    exp.save(exp_dir)
+    check(ckpt.best_checkpoint(exp_dir) == (play, 1), "orbax mesh: best_checkpoint")
+    midi, wav = binf.make_clip(tmp, "orbaxmesh", 10.0, 28)
+    S.clear_caches()
+    waves = {}
+    for what, kw in (("directory", {}), ("memory", {"params": served})):
+        synth = S.AudioSynthesizer(exp_dir, midi, wav, model_cfg=ModelConfig(), device="cuda",
+                                   **kw)
+        glue.reset_launches()
+        t = time.perf_counter()
+        waves[what] = synth.synthesize_waveform(n_iter=N_ITER)
+        dt = time.perf_counter() - t
+        gl = counted(glue, N_ITER, f"orbax mesh: request ({what})")
+        print(f"orbax mesh: (c) 10 s request, weights from the {what}: {dt:.3f} s")
+        del synth
+    y = waves["directory"]
+    check(y.ndim == 1 and y.shape[0] >= 9 * 44100 and bool(np.isfinite(y).all()),
+          f"orbax mesh: waveform shape {y.shape} or values")
+    check(np.array_equal(y, waves["memory"]),
+          "orbax mesh: serving from the 4-rank directory differs from the same weights in memory")
+    del served, waves
+    S.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    span("(c) serving", t_c)
+
+    # (d) fit resumes from it on the (1, 1) mesh
+    train_ds = ChunkDataset.from_arrays(host_arrays(32, seed=29), seed=0)
+    test_ds = ChunkDataset.from_arrays(host_arrays(16, seed=30), seed=1)
+    real = loop_mod.process_data
+    loop_mod.process_data = lambda *a, **k: (train_ds, test_ds)
+    dk.reset_launches()
+    try:
+        t = time.perf_counter()
+        _, exp = Trainer(ModelConfig(), dataclasses.replace(cfg, exp_name="mesh22"),
+                         exp_root=exp_root, device="cuda", mesh=mesh).fit(
+            "seeded-arrays", resume=True)
+        fit_s = time.perf_counter() - t
+    finally:
+        loop_mod.process_data = real
+    check(dk.LAUNCHES["dropout_apply"] == dk.LAUNCHES["dropout_grad"] == 20,
+          f"orbax mesh: dropout launches {dict(dk.LAUNCHES)} in the resumed epoch of 2 steps")
+    dropout += dk.LAUNCHES["dropout_apply"] + dk.LAUNCHES["dropout_grad"]
+    check(len(exp.loss_history) == 1 and bool(np.isfinite(exp.loss_history).all())
+          and bool(np.isfinite(exp.test_loss_history).all()),
+          f"orbax mesh: resumed losses {exp.loss_history} {exp.test_loss_history}")
+    print(f"orbax mesh: (d) fit(resume=True) on the (1, 1) mesh from the 4-rank directory: "
+          f"init, region reads, load, 2 steps and the evaluation {fit_s:.2f} s, loss "
+          f"{exp.loss_history[0]:.6f}; dropout launches 10 + 10 per step")
+    spans["(d) fit"] = fit_s
+    dist.destroy_process_group()
+    shutil.rmtree(exp_root)
+    total = time.perf_counter() - t_phase
+    print(f"orbax mesh: phase 23 card time {total:.1f} s: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in spans.items())
+          + f", the rest {total - sum(spans.values()):.2f} s")
     return dropout, 2 * gl
 
 
@@ -3315,6 +3588,15 @@ def main() -> None:
     dropout_launches += ob_dropout
     gl_launches += ob_gl
     check(not any(fc.LAUNCHES.values()), "phase 22 launched the fused conv kernel")
+    synth_mod.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        om_dropout, om_gl = timed("23 (orbax on a mesh)", orbax_mesh_phase, torch, dk, glue,
+                                  binf, tmp)
+    dropout_launches += om_dropout
+    gl_launches += om_gl
+    check(not any(fc.LAUNCHES.values()), "phase 23 launched the fused conv kernel")
     synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()

@@ -21,7 +21,15 @@ checkpoints (``inject_hyperparams(adam)``, alone or in a ``chain`` with
 dicts of their fields and tuples as dicts keyed "0", "1", ...) into the
 port's optimizer state (``train/optim.export_state``);
 ``to_jax_opt_state`` writes the tree the JAX ``Trainer`` of a given
-``TrainConfig`` restores.
+``TrainConfig`` restores, in optax's structure: named tuples as dicts of
+their fields, sequences (a ``chain``'s states, adam's inner chain) as
+tuples, optax's ``EmptyState`` as ``None``, ``MultiSteps``' empty
+``skip_state`` as ``()``. The orbax writer records that structure (what
+orbax records of the JAX ``Trainer``'s state); ``flax_state_dict`` gives
+flax's state-dict layout of it (what flax msgpack holds). ``to_jax_state``
+translates a whole checkpoint state; its ``leaf`` argument translates
+other leaves than tensors too, such as one rank's slices of them (a
+permutation of a slice is a slice of the permuted whole).
 """
 from __future__ import annotations
 
@@ -36,8 +44,14 @@ from ..config import TrainConfig
 # layout transposes, flax -> torch and torch -> flax
 _TO_TORCH = {"conv": lambda t: t.permute(2, 1, 0), "convT": lambda t: t.permute(1, 2, 0),
              "lin": lambda t: t.t()}
-_TO_FLAX = {"conv": lambda t: t.permute(2, 1, 0), "convT": lambda t: t.permute(2, 0, 1),
-            "lin": lambda t: t.t()}
+TO_FLAX_DIMS = {"conv": (2, 1, 0), "convT": (2, 0, 1), "lin": (1, 0)}
+_TO_FLAX = {k: (lambda t, d=d: t.permute(d)) for k, d in TO_FLAX_DIMS.items()}
+
+
+def _flax_leaf(t: torch.Tensor, dims) -> torch.Tensor:
+    """``to_jax_params``' default ``leaf``: ``t`` permuted to ``dims``
+    (None: as it is), detached and contiguous."""
+    return (t if dims is None else t.permute(dims)).detach().contiguous()
 
 # (regex on the flax module path, its torch key; regex on the torch key,
 # its flax path; layout)
@@ -132,11 +146,13 @@ def from_jax_params(tree: Mapping[str, Any], rules=PERFORMANCE_NET, keep_dtype: 
     return state
 
 
-def to_jax_params(state: Mapping[str, torch.Tensor], rules=PERFORMANCE_NET) -> dict:
+def to_jax_params(state: Mapping[str, Any], rules=PERFORMANCE_NET, leaf=_flax_leaf) -> dict:
     """The port's state_dict (or any tree of tensors keyed by its names,
     e.g. Adam moments) -> a flax param tree ``{"params": {...}}`` of
     contiguous tensors in the flax layout, on the tensors' device and in
-    their dtype. Unmapped keys raise KeyError."""
+    their dtype. ``leaf(value, dims)`` makes each flax leaf: ``dims`` is
+    the permutation from the torch layout (None for a bias). Unmapped keys
+    raise KeyError."""
     out: dict = {}
     for key, t in state.items():
         base, name = key.rsplit(".", 1)
@@ -146,8 +162,8 @@ def to_jax_params(state: Mapping[str, torch.Tensor], rules=PERFORMANCE_NET) -> d
                 node = out
                 for part in path_fn(m).split("/"):
                     node = node.setdefault(part, {})
-                leaf = _TO_FLAX[kind](t) if name == "weight" else t
-                node["kernel" if name == "weight" else "bias"] = leaf.detach().contiguous()
+                node["kernel" if name == "weight" else "bias"] = leaf(
+                    t, TO_FLAX_DIMS[kind] if name == "weight" else None)
                 break
         else:
             raise KeyError(f"unmapped port param: {key}")
@@ -162,11 +178,26 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def flax_state_dict(tree):
+    """An optax-structured tree (``to_jax_opt_state``'s, or a whole state
+    holding one) in flax's state-dict layout, what flax msgpack holds and
+    ``orbax_format.read`` returns: tuples and lists as dicts keyed "0",
+    "1", ...; ``None`` (optax's ``EmptyState``) as ``{}``. Dicts keep their
+    order; other leaves are kept as they are."""
+    if isinstance(tree, (tuple, list)):
+        return {str(i): flax_state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, Mapping):
+        return {k: flax_state_dict(v) for k, v in tree.items()}
+    return {} if tree is None else tree
+
+
 def from_jax_opt_state(tree: Mapping[str, Any], rules=PERFORMANCE_NET) -> dict:
-    """The optax state tree of a JAX ``Trainer`` checkpoint -> the port's
-    optimizer state (``train/optim.export_state``: lr, Adam count, mu, nu,
-    warmup count, EMA, accumulator, mini-step), tensors keyed by the port's
-    parameter names in their stored dtypes."""
+    """The optax state tree of a JAX ``Trainer`` checkpoint (flax's
+    state-dict layout, or ``to_jax_opt_state``'s optax structure) -> the
+    port's optimizer state (``train/optim.export_state``: lr, Adam count,
+    mu, nu, warmup count, EMA, accumulator, mini-step), tensors keyed by
+    the port's parameter names in their stored dtypes."""
+    tree = flax_state_dict(tree)
     params = lambda t: from_jax_params(t, rules, keep_dtype=True)  # noqa: E731
     out = {"lr": None, "count": 0, "mu": None, "nu": None, "warmup_count": None, "ema": None,
            "acc": None, "mini_step": None}
@@ -192,31 +223,51 @@ def from_jax_opt_state(tree: Mapping[str, Any], rules=PERFORMANCE_NET) -> dict:
     return out
 
 
-def to_jax_opt_state(state: Mapping[str, Any], cfg: TrainConfig, rules=PERFORMANCE_NET) -> dict:
+def to_jax_opt_state(state: Mapping[str, Any], cfg: TrainConfig, rules=PERFORMANCE_NET,
+                     leaf=_flax_leaf) -> dict:
     """The port's optimizer state -> the optax state tree that the JAX
-    ``Trainer`` built from ``cfg`` restores (the layout of its
-    ``self.tx``): scalars as 0-d int32/float32 arrays, trees in the flax
-    layout. ``optax.adam`` injects ``eps_root`` too; ``adam_compact``
-    (``cfg.adam_nu_dtype`` set) does not."""
-    params = lambda d: to_jax_params(d, rules)  # noqa: E731
+    ``Trainer`` built from ``cfg`` restores (the structure of its
+    ``self.tx``'s state: named tuples as dicts of their fields, sequences
+    as tuples, ``EmptyState`` as None, ``MultiSteps``' ``skip_state`` as
+    ``()``): scalars as 0-d int32/float32 arrays, trees in the flax layout
+    (``to_jax_params`` with ``leaf``). ``optax.adam`` injects ``eps_root``
+    too; ``adam_compact`` (``cfg.adam_nu_dtype`` set) does not."""
+    params = lambda d: to_jax_params(d, rules, leaf)  # noqa: E731
     hyper = {"b1": _f32(0.9), "b2": _f32(0.999), "eps": _f32(1e-8)}
     if cfg.adam_nu_dtype is None:
         hyper["eps_root"] = _f32(0.0)
     hyper["learning_rate"] = _f32(state["lr"])
+    # inject_hyperparams' state; its inner state is adam's chain of
+    # (scale_by_adam, scale_by_learning_rate), the second an EmptyState
     base = {"count": _i32(state["count"]), "hyperparams": hyper, "hyperparams_states": {},
-            "inner_state": {"0": {"count": _i32(state["count"]), "mu": params(state["mu"]),
-                                  "nu": params(state["nu"])}, "1": {}}}
-    chain = [{}] if cfg.grad_clip_norm is not None else []
+            "inner_state": ({"count": _i32(state["count"]), "mu": params(state["mu"]),
+                             "nu": params(state["nu"])}, None)}
+    chain = [None] if cfg.grad_clip_norm is not None else []  # clip_by_global_norm's EmptyState
     chain.append(base)
     if cfg.warmup_steps > 0:
         chain.append({"count": _i32(state["warmup_count"])})
     if cfg.ema_decay is not None:
         chain.append({"ema": params(state["ema"])})
-    tx = base if len(chain) == 1 else {str(i): s for i, s in enumerate(chain)}
+    tx = base if len(chain) == 1 else tuple(chain)
     if cfg.grad_accum > 1:
         tx = {"mini_step": _i32(state["mini_step"]), "gradient_step": _i32(state["count"]),
-              "inner_opt_state": tx, "acc_grads": params(state["acc"]), "skip_state": {}}
+              "inner_opt_state": tx, "acc_grads": params(state["acc"]), "skip_state": ()}
     return tx
+
+
+def to_jax_state(state: Mapping[str, Any], cfg: TrainConfig, rules=PERFORMANCE_NET,
+                 leaf=_flax_leaf) -> dict:
+    """A checkpoint state in the port's layout (``Trainer.state_dict``'s or
+    ``sharded_state_dict``'s keys: ``params``, ``opt_state``, ``epoch``,
+    ``scheduler``, and ``ema_params`` where the run keeps an EMA) -> the
+    JAX ``Trainer``'s state tree for ``cfg`` (``to_jax_params``,
+    ``to_jax_opt_state``), each tensor leaf made by ``leaf``."""
+    out = {"params": to_jax_params(state["params"], rules, leaf),
+           "opt_state": to_jax_opt_state(state["opt_state"], cfg, rules, leaf),
+           "epoch": state["epoch"], "scheduler": state["scheduler"]}
+    if "ema_params" in state:
+        out["ema_params"] = to_jax_params(state["ema_params"], rules, leaf)
+    return out
 
 
 def load_reference_checkpoint(path: str, compat_mbr_noop: bool = False

@@ -125,20 +125,17 @@ class PerformanceNet(nn.Module):
     def shard_tensor_parallel_(self, group) -> "PerformanceNet":
         """Tensor parallelism over the model-axis ``group``: each
         conv, transposed conv and DenseConcat linear keeps this rank's
-        slice along ``parallel/mesh.param_shard_dim`` (dims the axis does
-        not divide stay whole). The forward then gives every model rank the
-        unsharded model's output; ``load_state_dict`` takes an unsharded
-        state_dict and ``full_state_dict`` returns one."""
+        slice along the dim ``parallel/mesh.tp_dims`` gives it (dims the
+        axis does not divide stay whole). The forward then gives every
+        model rank the unsharded model's output; ``load_state_dict`` takes
+        an unsharded state_dict and ``full_state_dict`` returns one."""
         from ..parallel import comm, mesh as pmesh
 
-        n = comm.group_size(group)
+        dims = pmesh.tp_dims({k: tuple(p.shape) for k, p in self.named_parameters()},
+                             comm.group_size(group))
         for name, mod in self.named_modules():
-            if not isinstance(mod, _Affine):
-                continue
-            dim = pmesh.param_shard_dim(f"{name}.weight", mod.weight.shape, n)
-            if dim is not None:
-                bias_dim = pmesh.param_shard_dim(f"{name}.bias", mod.bias.shape, n)
-                mod.shard_(group, dim, bias_dim is not None)
+            if isinstance(mod, _Affine) and f"{name}.weight" in dims:
+                mod.shard_(group, dims[f"{name}.weight"], f"{name}.bias" in dims)
         return self
 
     def tp_dims(self) -> dict[str, int]:

@@ -28,11 +28,12 @@ import torch.multiprocessing as mp
 from . import mesh as pmesh
 
 
-def _entry(rank: int, fn, world_size: int, device: str, tmp: str, args: tuple,
-           timeout: float) -> None:
+def _entry(rank: int, fn, world_size: int, device: str, tmp: str, timeout: float) -> None:
     torch.set_num_threads(1)
     if device == "cuda":
         os.environ["LOCAL_RANK"] = str(rank)
+    with open(os.path.join(tmp, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     pmesh.distributed_init(device, init_method=f"file://{tmp}/store", world_size=world_size,
                            rank=rank, timeout=timeout)
     try:
@@ -48,16 +49,21 @@ def spawn(fn, world_size: int, args: tuple = (), device: str = "cuda",
     """``fn(rank, *args)`` on ``world_size`` new processes joined in one
     process group (NCCL on one card each, or gloo with ``device="cpu"``),
     each with one intra-op thread. ``fn`` must be importable (a module's
-    top-level function). Returns the ranks' return values, in rank order;
-    raises if any rank fails, or waits in a collective for more than
-    ``timeout`` seconds (so ranks that fall out of step fail the call)."""
+    top-level function). ``args`` reach the ranks through a file: through
+    the start pipe, a large one would hold each rank's start until the rank
+    before had imported torch. Returns the ranks' return values, in rank
+    order; raises if any rank fails, or waits in a collective for more
+    than ``timeout`` seconds (so ranks that fall out of step fail the
+    call)."""
     if device == "cuda" and torch.cuda.device_count() < world_size:
         raise RuntimeError(f"{world_size} ranks need {world_size} cards, "
                            f"{torch.cuda.device_count()} visible")
     tmp = tempfile.mkdtemp(prefix="mmst_spawn_")
     try:
-        mp.spawn(_entry, args=(fn, world_size, device, tmp, tuple(args), timeout),
-                 nprocs=world_size, join=True)
+        with open(os.path.join(tmp, "args.pkl"), "wb") as f:
+            pickle.dump(tuple(args), f)
+        mp.spawn(_entry, args=(fn, world_size, device, tmp, timeout), nprocs=world_size,
+                 join=True)
         out = []
         for r in range(world_size):
             with open(os.path.join(tmp, f"result_{r}.pkl"), "rb") as f:

@@ -18,7 +18,9 @@ rank count the launch does not provide raises ``ValueError``.
 The rules (``param_shard_dim``, ``zero_extend``) are the JAX package's
 PartitionSpec rules on the port's ``state_dict`` names and layouts.
 ``checkpoint_mesh`` and ``placements`` say where a rank's TP and ZeRO
-slices lie in the whole tensor, for the sharded checkpoints.
+slices lie in the whole tensor, for the sharded checkpoints;
+``checkpoint_ranks``, ``tp_dims`` and ``shard_box`` compute the same with
+no process group (one process can then cut every rank's slices).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import os
 import re
 import socket
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -273,6 +276,11 @@ def per_device_param_bytes(params) -> tuple[int, int]:
     return per, total
 
 
+def _checkpoint_order(names: tuple[str, ...]) -> tuple[str, ...]:
+    batch = ("dcn", "data") if "dcn" in names else ("data",)
+    return tuple(a for a in ("model", *batch) if a in names)
+
+
 def checkpoint_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """``mesh``'s ranks ordered (model, *batch axes), a mesh with no process
     groups of its own: the mesh the checkpoints' DTensors are placed on.
@@ -280,16 +288,73 @@ def checkpoint_mesh(mesh: DeviceMesh) -> DeviceMesh:
     batch axes (dcn-major), so where both take one dim the model axis is
     the outer split; DTensor splits along its mesh's dims in their order."""
     names = tuple(mesh.mesh_dim_names)
-    order = tuple(a for a in ("model", *batch_axes(mesh)) if a in names)
+    order = _checkpoint_order(names)
     ranks = mesh.mesh.permute(*(names.index(a) for a in order)).contiguous()
     return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=order, _init_backend=False)
 
 
-def placements(ckpt_mesh: DeviceMesh, tp_dim: int | None, zero_dim: int | None) -> list:
-    """The DTensor placements on ``checkpoint_mesh`` of a tensor whose TP
+def checkpoint_ranks(shape: dict[str, int]) -> tuple[tuple[str, ...], np.ndarray]:
+    """``checkpoint_mesh`` of a ``make_mesh`` mesh of ``shape`` (axis name ->
+    size, in the mesh's order, e.g. ``{"data": 2, "model": 2}``) as (axis
+    names, grid of ranks), with no process group: ``make_mesh`` numbers
+    the ranks in row-major order of its axes."""
+    names = tuple(shape)
+    order = _checkpoint_order(names)
+    grid = np.arange(math.prod(shape.values())).reshape(tuple(shape.values()))
+    return order, grid.transpose([names.index(a) for a in order])
+
+
+def tp_dims(shapes: dict[str, tuple], model_size: int) -> dict[str, int]:
+    """{state_dict key: sharded dim} of a PerformanceNet's tensor-parallel
+    parameters over a model axis of ``model_size``, from the whole
+    parameters' shapes: a weight along ``param_shard_dim``, its bias with
+    it where that bias has a dim of its own. ``shard_tensor_parallel_``
+    shards the live model so, and ``loop.rank_orbax_state`` cuts a rank's
+    blocks so."""
+    out = {}
+    for key, shape in shapes.items():
+        if not key.endswith(".weight"):
+            continue
+        dim = param_shard_dim(key, shape, model_size)
+        if dim is None:
+            continue
+        out[key] = dim
+        bias = key[:-len("weight")] + "bias"
+        if bias in shapes and param_shard_dim(bias, shapes[bias], model_size) is not None:
+            out[bias] = 0
+    return out
+
+
+def shard_box(ranks: np.ndarray, rank: int, places: list, shape) -> tuple[tuple, tuple, bool]:
+    """(offset, size, written) of rank ``rank``'s block of a tensor of
+    ``shape`` placed by ``places`` (``placements``) on a checkpoint mesh
+    whose grid of ranks is ``ranks``: mesh dims split in their order, and
+    of the ranks that hold one block the one at coordinate 0 on every
+    replicated dim writes it (``written``). A split that leaves a
+    remainder raises ``ValueError`` (the rules replicate such dims)."""
+    coord = np.argwhere(np.asarray(ranks) == rank)
+    if len(coord) != 1:
+        raise ValueError(f"rank {rank} is not on the checkpoint mesh {np.asarray(ranks).tolist()}")
+    offset, size, written = [0] * len(shape), list(shape), True
+    for c, n, p in zip(coord[0], np.shape(ranks), places):
+        if isinstance(p, Shard):
+            if size[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split {n} ways")
+            size[p.dim] //= n
+            offset[p.dim] += int(c) * size[p.dim]
+        elif c:
+            written = False
+    return tuple(offset), tuple(size), written
+
+
+def placements(ckpt_mesh: DeviceMesh | tuple[str, ...], tp_dim: int | None,
+               zero_dim: int | None) -> list:
+    """The DTensor placements on ``checkpoint_mesh`` (or on a checkpoint
+    mesh of these axis names, ``checkpoint_ranks``) of a tensor whose TP
     slice is along ``tp_dim`` and whose ZeRO slice (of the TP slice) is
     along ``zero_dim`` (None: whole over that axis)."""
     def on(dim):
         return Replicate() if dim is None else Shard(dim)
 
-    return [on(tp_dim if name == "model" else zero_dim) for name in ckpt_mesh.mesh_dim_names]
+    names = ckpt_mesh if isinstance(ckpt_mesh, tuple) else ckpt_mesh.mesh_dim_names
+    return [on(tp_dim if name == "model" else zero_dim) for name in names]

@@ -8,9 +8,10 @@ the port's counterpart of the JAX package's
 
 The epoch is hyperparams.json's ``best_epoch`` (the reference's own
 contract, model/inference.py:22-29) unless ``--epoch`` names one. The
-checkpoint may be the port's ``checkpoint-{epoch}.pt`` or the JAX
-package's ``checkpoint-{epoch}.msgpack``; ``--use-ema`` exports its EMA
-weights. The output, ``{exp_dir}/checkpoint-{epoch}.tar`` by default, is
+checkpoint may be the port's ``checkpoint-{epoch}.pt`` or ``.dcp``, or the
+JAX package's ``checkpoint-{epoch}.msgpack`` or ``.orbax`` (written by one
+process or by the ranks of a mesh), found in that order; ``--use-ema``
+exports its EMA weights. The output, ``{exp_dir}/checkpoint-{epoch}.tar`` by default, is
 ``{"epoch", "state_dict", "optimizer": None}`` with float32 tensors under
 the reference's keys (``compat/weights.save_reference_checkpoint``). Only
 full-width (``width_mult=1.0``) weights fit the reference's strict load.
@@ -50,10 +51,11 @@ def main(argv=None) -> str:
         path, epoch = ckpt.best_checkpoint(exp_dir)
     else:
         epoch = args.epoch
-        found = [p for p in (ckpt.checkpoint_path(exp_dir, epoch),
-                             ckpt.checkpoint_path(exp_dir, epoch, "msgpack")) if os.path.exists(p)]
+        found = [p for p in (ckpt.checkpoint_path(exp_dir, epoch, fmt)
+                             for fmt in ("torch", "msgpack", "dcp", "orbax")) if os.path.exists(p)]
         if not found:
-            raise FileNotFoundError(f"no checkpoint-{epoch}.pt or .msgpack in {exp_dir}")
+            raise FileNotFoundError(f"no checkpoint-{epoch}.pt, .msgpack, .dcp or .orbax "
+                                    f"in {exp_dir}")
         path = found[0]
     params = load_checkpoint_params(path, use_ema=args.use_ema, device=device)
     out = args.out or os.path.join(exp_dir, f"checkpoint-{epoch}.tar")

@@ -43,8 +43,14 @@ Four formats:
     ``.msgpack`` its tree is in the JAX layout and ``restore_checkpoint``
     returns it as it stands, ``keys=`` reading only those trees' chunks.
     ``save_checkpoint_orbax`` writes one in the background, as
-    ``save_checkpoint_sharded`` does a ``.dcp``, from a whole-tensor state
-    (``Trainer.jax_state_dict``).
+    ``save_checkpoint_sharded`` does a ``.dcp``: from whole tensors on one
+    device (``Trainer.jax_state_dict``), or on a mesh from each rank's own
+    blocks (``orbax_format.Shard``s, ``Trainer.orbax_state``), where every
+    rank writes the blocks it holds (a replicated one once) into its own
+    ``ocdbt.process_{rank}/`` and nothing is gathered but the lists of
+    keys; rank 0 then commits. ``restore_checkpoint_orbax_sharded`` reads
+    a template's blocks, each rank only the chunks that meet its own, on
+    any mesh.
 Where one epoch has several, the ``.pt`` wins, then the ``.msgpack``, then
 the ``.dcp``, then the ``.orbax``.
 """
@@ -52,11 +58,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
+import dataclasses
 import glob
 import json
 import os
 import re
 import shutil
+import time
 from typing import Any, Iterable
 
 import torch
@@ -66,6 +74,8 @@ from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
+from ..compat import weights
+from ..parallel import mesh as pmesh
 from . import flax_msgpack, orbax_format
 
 FORMATS = {"torch": "pt", "msgpack": "msgpack"}
@@ -110,7 +120,8 @@ def checkpoint_path(exp_dir: str, epoch: int, fmt: str = "torch") -> str:
 def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -> str:
     """Write ``state`` as checkpoint-{epoch}.pt (``fmt="torch"``) or as
     flax msgpack, checkpoint-{epoch}.msgpack (``fmt="msgpack"``; ``state``
-    in the JAX layout, e.g. ``Trainer.jax_state_dict``), via a temporary
+    in the JAX layout, e.g. ``Trainer.jax_state_dict``, written in flax's
+    state-dict layout, ``weights.flax_state_dict``), via a temporary
     file, so a crash mid-write never leaves a truncated checkpoint under
     its name."""
     if fmt not in FORMATS:
@@ -118,7 +129,7 @@ def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -
                          "('dcp': save_checkpoint_sharded; 'orbax': save_checkpoint_orbax)")
     path = checkpoint_path(exp_dir, epoch, fmt)
     if fmt == "msgpack":
-        return flax_msgpack.dump(state, path)
+        return flax_msgpack.dump(weights.flax_state_dict(state), path)
     tmp = f"{path}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
@@ -126,9 +137,11 @@ def save_checkpoint(exp_dir: str, epoch: int, state: dict, fmt: str = "torch") -
 
 
 def tree_map(fn, tree):
-    """``fn`` on every leaf of nested dicts."""
+    """``fn`` on every leaf of nested dicts, tuples and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -203,6 +216,8 @@ class _AsyncSaver:
         on_card = []
 
         def copy_leaf(path, v):
+            if isinstance(v, orbax_format.Shard):  # only a block this rank writes is copied
+                return dataclasses.replace(v, data=copy_leaf(path, v.data) if v.write else None)
             if not isinstance(v, torch.Tensor):
                 return copy.deepcopy(v)
             local = v.to_local() if isinstance(v, DTensor) else v
@@ -223,6 +238,8 @@ class _AsyncSaver:
         def walk(tree, path):
             if isinstance(tree, dict):
                 return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            if isinstance(tree, (tuple, list)):
+                return type(tree)(walk(v, path + (str(i),)) for i, v in enumerate(tree))
             return copy_leaf(path, tree)
 
         staged = walk(state, ())
@@ -234,10 +251,13 @@ class _AsyncSaver:
 _SAVER = _AsyncSaver()
 
 
-def _has_dtensor(tree) -> bool:
+def _has(tree, kind) -> bool:
     if isinstance(tree, dict):
-        return any(_has_dtensor(v) for v in tree.values())
-    return isinstance(tree, DTensor)
+        return any(_has(v, kind) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(_has(v, kind) for v in tree)
+    return isinstance(tree, kind)
+
 
 
 def _is_coordinator(group) -> bool:
@@ -279,7 +299,7 @@ def save_checkpoint_sharded(exp_dir: str, epoch: int, state: dict,
     8.78 GB at full width with fused Adam). Where None the copy is
     allocated anew and freed when the write ends."""
     _SAVER.wait()
-    group = _SAVER.group() if _has_dtensor(state) else None
+    group = _SAVER.group() if _has(state, DTensor) else None
     path = sharded_checkpoint_path(exp_dir, epoch)
     tmp = f"{path}.tmp"
     if _is_coordinator(group) and os.path.exists(tmp):
@@ -297,29 +317,72 @@ def save_checkpoint_sharded(exp_dir: str, epoch: int, state: dict,
     return path
 
 
-def _flush_orbax(box: list, path: str) -> str:
-    """Write the staged state ``box`` holds as an orbax directory (it
-    commits by its rename); the box is emptied as in ``_flush``."""
-    return orbax_format.write(path, box.pop())
+def _flush_orbax(box: list, tmp: str, path: str, group) -> str:
+    """Write this rank's part of the staged state ``box`` holds
+    (``orbax_format.write_shards``), gather every rank's entries over
+    ``group``, and let the coordinator commit. A rank whose write failed
+    makes every rank raise, and nothing is committed; so does a failed
+    commit. The box is emptied as in ``_flush``."""
+    staged = box.pop()
+    rank = 0 if group is None else dist.get_rank(group)
+    leaves = orbax_format.layout(staged)
+    t0 = time.time_ns()
+    err = entries = None
+    try:
+        entries = orbax_format.write_shards(tmp, rank, staged)
+    except Exception as e:  # reported on every rank below
+        err = f"rank {rank}: {type(e).__name__}: {e}"
+    del staged
+    gathered = [(err, entries)]
+    if group is not None:
+        gathered = [None] * dist.get_world_size(group)
+        dist.all_gather_object(gathered, (err, entries), group=group)
+    errors = [e for e, _ in gathered if e is not None]
+    if errors:
+        if _is_coordinator(group):
+            shutil.rmtree(tmp, ignore_errors=True)
+        raise OSError(f"orbax save of {path} failed, nothing committed: {'; '.join(errors)}")
+    status = [None]
+    if _is_coordinator(group):
+        try:
+            orbax_format.commit(tmp, path, leaves, [e for _, e in gathered], t0)
+        except Exception as e:
+            status = [f"{type(e).__name__}: {e}"]
+    if group is not None:
+        dist.broadcast_object_list(status, src=dist.get_global_rank(group, 0), group=group)
+    if status[0] is not None:
+        raise OSError(f"orbax save of {path} failed to commit: {status[0]}")
+    return path
 
 
 def save_checkpoint_orbax(exp_dir: str, epoch: int, state: dict, wait: bool = False,
                           buffers: dict | None = None) -> str:
-    """Write ``state`` (whole tensors in the JAX layout,
-    ``Trainer.jax_state_dict``) as ``checkpoint-{epoch}.orbax``, the
-    counterpart of the JAX package's ``save_checkpoint_sharded``: returns
-    once ``state`` is copied to the host (into ``buffers`` where given, as
-    in ``save_checkpoint_sharded``) and the write goes on in the
-    background into ``checkpoint-{epoch}.orbax.tmp``, renamed on commit.
-    The next save, a restore and ``wait_for_async_saves`` join it;
-    ``wait=True`` joins it here. On a mesh one rank calls it."""
+    """Write ``state`` (the JAX layout) as ``checkpoint-{epoch}.orbax``, the
+    counterpart of the JAX package's ``save_checkpoint_sharded``. Its
+    leaves are whole (``Trainer.jax_state_dict``; one process writes
+    them), or on a mesh each rank's ``orbax_format.Shard``s
+    (``Trainer.orbax_state``; every rank calls this and writes the blocks
+    it holds, a replicated block by one rank, into its own
+    ``ocdbt.process_{rank}/``; then rank 0 commits). Returns once the
+    blocks this rank writes are copied to the host (into ``buffers``
+    where given, as in ``save_checkpoint_sharded``); the write goes on in
+    the background into ``checkpoint-{epoch}.orbax.tmp``, renamed on
+    commit. The next save, a restore and ``wait_for_async_saves`` join
+    it; ``wait=True`` joins it here."""
     _SAVER.wait()
+    group = _SAVER.group() if _has(state, orbax_format.Shard) and dist.is_initialized() \
+        else None
     path = os.path.abspath(checkpoint_path(exp_dir, epoch, "orbax"))
+    tmp = f"{path}.tmp"
+    if _is_coordinator(group) and os.path.exists(tmp):
+        shutil.rmtree(tmp)  # a save that never committed
+    if group is not None:
+        dist.barrier(group=group)
     box = [_SAVER.stage(state, {} if buffers is None else buffers)]
     if _SAVER.executor is None:
         _SAVER.executor = concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="checkpoint-flush")
-    _SAVER.pending = (_SAVER.executor.submit(_flush_orbax, box, path), None)
+    _SAVER.pending = (_SAVER.executor.submit(_flush_orbax, box, tmp, path, group), None)
     del box
     if wait:
         _SAVER.wait()
@@ -357,7 +420,7 @@ def restore_checkpoint_sharded(path: str, template: dict) -> dict:
     if missing:
         raise ValueError(f"checkpoint {path} lacks {sorted('.'.join(p) for p in missing)}: "
                          "it was written for another model or other optimizer options")
-    group = _SAVER.group() if _has_dtensor(template) else None
+    group = _SAVER.group() if _has(template, DTensor) else None
     dcp.load(template, storage_reader=dcp.FileSystemReader(path), process_group=group,
              no_dist=group is None)
     return template
@@ -381,6 +444,34 @@ def _restore_host(path: str, keys: Iterable[str] | None = None) -> dict:
                        if isinstance(meta, TensorStorageMetadata) else None)
     if tree:
         dcp.load(tree, storage_reader=dcp.FileSystemReader(path), no_dist=True)
+    return tree
+
+
+def shard_of(t: DTensor) -> orbax_format.Shard:
+    """This rank's block of the DTensor ``t`` (on a checkpoint mesh), its
+    data the local tensor (``shard_box``)."""
+    offset, size, write = pmesh.shard_box(t.device_mesh.mesh.numpy(), dist.get_rank(),
+                                          t.placements, tuple(t.shape))
+    return orbax_format.Shard(t.to_local(), tuple(t.shape), offset, size, t.dtype, write)
+
+
+def restore_checkpoint_orbax_sharded(path: str, template: dict, stats: dict | None = None
+                                     ) -> dict:
+    """The orbax directory at ``path`` read into ``template`` (the JAX
+    layout; only its top-level keys are read), the counterpart of the JAX
+    package's ``restore_checkpoint_sharded``: an ``orbax_format.Shard``
+    leaf (a rank's block, e.g. ``shard_of`` a DTensor, or
+    ``Trainer.orbax_state``'s) comes back as its block, a CPU tensor read
+    from the chunks that meet it and no other, whatever grid of chunks the
+    writer's mesh gave the array; the other leaves come back whole as
+    saved. A leaf or a top-level key the checkpoint lacks raises
+    ``ValueError``. ``stats``: as ``orbax_format.read``."""
+    _SAVER.wait()
+    regions = {k: (b.offset, b.size) for k, b in orbax_format.shards(template).items()}
+    tree = orbax_format.read(path, keys=list(template), stats=stats, regions=regions)
+    missing = set(template) - set(tree)
+    if missing:
+        raise ValueError(f"checkpoint {path} has no {sorted(missing)}")
     return tree
 
 

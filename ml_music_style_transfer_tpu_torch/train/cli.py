@@ -35,8 +35,8 @@ dims (TP), ``--zero-opt`` the optimizer state over the data axis (ZeRO-1),
 and ``--store-sharding data`` splits a ``--device-resident`` store's rows
 over the data axis. ``--device cpu`` runs the ranks on the CPU (gloo).
 ``--ckpt-format orbax`` writes the JAX package's orbax directories
-(``checkpoint-{epoch}.orbax``) in the background; ``dcp`` writes each
-rank's own slices. Reference CLI:
+(``checkpoint-{epoch}.orbax``) in the background; it and ``dcp`` write
+each rank's own slices on a mesh, with nothing gathered. Reference CLI:
 model/train.py:211-220.
 """
 from __future__ import annotations

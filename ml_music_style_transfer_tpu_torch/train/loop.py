@@ -52,12 +52,13 @@ the batch axes ``data``, or ``dcn`` x ``data``):
     nothing (one device, as the JAX Trainer's 1-wide data axis);
   - dropout: data rank d draws with ``dropout.fold_seed(seed, d)``, so the
     masks differ across data ranks while rank 0 draws one device's masks;
-  - ``.pt``, ``.msgpack`` and ``.orbax`` checkpoints hold whole tensors: saving
+  - ``.pt`` and ``.msgpack`` checkpoints hold whole tensors: saving
     gathers the TP slices and the ZeRO slices of the optimizer state
     (every rank takes part, rank 0 writes), and a resume gives each rank
-    its slices again. A ``.dcp`` gathers nothing: each rank writes the
-    slices it holds (``sharded_state_dict``) and a resume reads only them
-    (``load_sharded_state``);
+    its slices again. A ``.dcp`` or an ``.orbax`` gathers nothing: each
+    rank writes the slices it holds (``sharded_state_dict``;
+    ``orbax_state``, the same slices in the JAX layout) and a resume
+    reads only them (``load_sharded_state``, ``load_orbax_sharded``);
   - the device-resident store is replicated or sharded over the data axis
     (``store_sharding``; ``DeviceDataStore.local_batch``).
 """
@@ -66,6 +67,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import os
 import time
 from typing import Iterator
@@ -86,7 +88,7 @@ from ..parallel import comm
 from ..parallel import mesh as pmesh
 from ..utils.logging import MetricsLogger
 from . import checkpoint as ckpt
-from . import losses, optim
+from . import losses, optim, orbax_format
 from .schedule import ReduceLROnPlateau
 
 
@@ -118,6 +120,45 @@ def device_prefetch(batches: Iterator[dict], device: torch.device, depth: int = 
             yield buf.popleft()
     while buf:
         yield buf.popleft()
+
+
+def rank_orbax_state(state: dict, cfg: TrainConfig, shape: dict[str, int], rank: int) -> dict:
+    """``Trainer.orbax_state`` of rank ``rank`` of a ``make_mesh`` mesh of
+    ``shape`` (e.g. ``{"data": 2, "model": 2}``) with ``cfg``'s ZeRO
+    option, cut from the whole state ``state`` (``Trainer.state_dict``'s,
+    tensors on any device) with no process group: each tensor's block is
+    a view of it at the place the placements of a ``Trainer`` on that mesh
+    give (``parallel/mesh.tp_dims``, ``zero_extend``). One process can so
+    write the directory of every rank (``orbax_format.write_shards``)."""
+    names, ranks = pmesh.checkpoint_ranks(shape)
+    n_batch = math.prod(n for a, n in shape.items() if a != "model")
+    tp = pmesh.tp_dims({k: tuple(v.shape) for k, v in state["params"].items()},
+                       shape.get("model", 1))
+
+    def local(key, t):
+        size = list(t.shape)
+        if key in tp:
+            size[tp[key]] //= shape["model"]
+        return size
+
+    def cut(tensors: dict, sliced: bool) -> dict:
+        out = {}
+        for k, t in tensors.items():
+            zero = (pmesh.zero_extend(local(k, t), n_batch)
+                    if sliced and cfg.zero_opt else None)
+            offset, size, write = pmesh.shard_box(
+                ranks, rank, pmesh.placements(names, tp.get(k), zero), tuple(t.shape))
+            block = t[tuple(slice(o, o + n) for o, n in zip(offset, size))]
+            out[k] = orbax_format.Shard(block, tuple(t.shape), offset, size, t.dtype, write)
+        return out
+
+    blocks = {"params": cut(state["params"], False),
+              "opt_state": {k: cut(v, True) if k in ("mu", "nu", "ema", "acc")
+                            and v is not None else v for k, v in state["opt_state"].items()},
+              "epoch": state["epoch"], "scheduler": state["scheduler"]}
+    if "ema_params" in state:
+        blocks["ema_params"] = cut(state["ema_params"], True)
+    return weights.to_jax_state(blocks, cfg, leaf=lambda b, dims: b.permute(dims))
 
 
 class Trainer:
@@ -235,12 +276,7 @@ class Trainer:
         ``save_checkpoint(..., fmt="msgpack")`` writes and the JAX
         package's ``restore_checkpoint`` reads. On a mesh every rank calls
         it."""
-        state = {"params": weights.to_jax_params(self.model.full_state_dict()),
-                 "opt_state": weights.to_jax_opt_state(self._opt_state(), self.cfg),
-                 "epoch": epoch, "scheduler": self.scheduler.state_dict()}
-        if self.cfg.ema_decay is not None:
-            state["ema_params"] = weights.to_jax_params(self.ema_state_dict())
-        return state
+        return weights.to_jax_state(self.state_dict(epoch), self.cfg)
 
     def _local_opt(self):
         """The optimizer that holds this rank's state: ZeRO's inner one."""
@@ -278,6 +314,33 @@ class Trainer:
         if "ema_params" in state:
             state["ema_params"] = place(state["ema_params"], True)
         return state
+
+    def orbax_state(self, epoch: int) -> dict:
+        """``jax_state_dict``'s tree with no collective: on a mesh each
+        tensor leaf is this rank's block of it (``orbax_format.Shard``:
+        ``sharded_state_dict``'s slices, permuted into the JAX layout as
+        the whole is), what ``save_checkpoint_orbax`` writes on a mesh;
+        with no mesh the whole tensors. On a mesh every rank calls it."""
+        state = self.sharded_state_dict(epoch)
+        if self.mesh is None:
+            return weights.to_jax_state(state, self.cfg)
+        return weights.to_jax_state(ckpt.tree_map(
+            lambda v: ckpt.shard_of(v) if isinstance(v, DTensor) else v, state), self.cfg,
+            leaf=lambda b, dims: b.permute(dims))
+
+    def load_orbax_sharded(self, path: str, stats: dict | None = None) -> int:
+        """Restore an ``.orbax`` (written by the JAX package or the port, on
+        any mesh) into this Trainer's own placement: each rank reads only
+        the chunks that meet its blocks (``orbax_state``'s), and no
+        ``ema_params`` (the EMA is in the optimizer state). On a mesh
+        every rank calls it. Returns the epoch."""
+        template = {k: v for k, v in self.orbax_state(0).items() if k != "ema_params"}
+        state = ckpt.restore_checkpoint_orbax_sharded(path, template, stats)
+        self.model.load_state_dict(weights.from_jax_params(state["params"]))
+        optim.import_state(self._local_opt(), weights.from_jax_opt_state(state["opt_state"]),
+                           self._names())
+        self.scheduler.load_state_dict(state["scheduler"])
+        return state["epoch"]
 
     def load_sharded_state(self, path: str) -> int:
         """Restore a ``.dcp`` (``sharded_state_dict``'s layout, written on
@@ -527,10 +590,12 @@ class Trainer:
         background while training goes on, each rank its own slices, from
         page-locked host buffers the run reuses and frees when it ends; the
         next save and the end of ``fit`` join the write) or "orbax" (the
-        JAX package's ``checkpoint-{epoch}.orbax``, ``jax_state_dict``,
-        written in the background in the same way by rank 0). A resume
-        restores a ``.dcp`` into this Trainer's placement, and reads any
-        other format whole (each rank keeps its slices). With
+        JAX package's ``checkpoint-{epoch}.orbax``, ``orbax_state``,
+        written in the background in the same way, each rank its own
+        blocks on a mesh). A resume restores a ``.dcp``, and on a mesh an
+        ``.orbax``, into this Trainer's placement, each rank reading only
+        its slices, and reads any other format whole (each rank keeps its
+        slices). With
         ``ema_decay`` set the EMA weights are evaluated, ranked and written
         as ``ema_params``.
         """
@@ -588,6 +653,8 @@ class Trainer:
                 path = latest[0]
                 if path.endswith(".dcp"):
                     start_epoch = self.load_sharded_state(path)
+                elif path.endswith(".orbax") and self.mesh is not None:
+                    start_epoch = self.load_orbax_sharded(path)
                 else:
                     state = ckpt.restore_checkpoint(path, self.device)
                     self.load_state(state)
@@ -632,11 +699,9 @@ class Trainer:
                         ckpt.save_checkpoint_sharded(self.exp_dir, epoch + 1,
                                                      self.sharded_state_dict(epoch + 1),
                                                      buffers=staging)
-                    elif checkpoint_format == "orbax":  # gathered, rank 0 writes
-                        state = self.jax_state_dict(epoch + 1)
-                        if self.is_main:
-                            ckpt.save_checkpoint_orbax(self.exp_dir, epoch + 1, state,
-                                                       buffers=staging)
+                    elif checkpoint_format == "orbax":  # every rank, its own blocks
+                        ckpt.save_checkpoint_orbax(self.exp_dir, epoch + 1,
+                                                   self.orbax_state(epoch + 1), buffers=staging)
                     else:
                         state = (self.jax_state_dict(epoch + 1) if checkpoint_format == "msgpack"
                                  else self.state_dict(epoch + 1))

@@ -29,7 +29,12 @@ bytes it reads: ``node_bytes`` for manifests and nodes, ``value_bytes``
 for values. ``Writer`` writes the simplest layout tensorstore and orbax
 read: one version, leaves of at most ``max_decoded_node_bytes`` under
 interior nodes where there is more than one, values over
-``max_inline_value_bytes`` in data files.
+``max_inline_value_bytes`` in data files. ``commit`` hands back the
+database's entries (key -> inline value, or (data file, offset, length)),
+so that a root database can hold the keys of several process databases:
+``put_ref`` enters a value that lies in another database's data file, by
+its path relative to the root (``ocdbt.process_1/`` + ``d/...``), as
+orbax's root database does.
 """
 from __future__ import annotations
 
@@ -230,13 +235,13 @@ def _read_files(r: _In, base: str) -> list[DataFile]:
     return files
 
 
-def _write_files(paths: list[str]) -> bytes:
-    """A data-file table of paths with no base part."""
-    enc = [p.encode() for p in paths]
+def _write_files(files: list[tuple[str, str]]) -> bytes:
+    """A data-file table of (base, relative path) pairs, sorted by path."""
+    enc = [(b + r).encode() for b, r in files]
     prefix = [_common(a, b) for a, b in zip(enc, enc[1:])]
     out = _varint(len(enc)) + b"".join(map(_varint, prefix))
     out += b"".join(_varint(len(e) - p) for e, p in zip(enc, [0] + prefix))
-    out += b"".join(_varint(0) for _ in enc)
+    out += b"".join(_varint(len(b.encode())) for b, _ in files)
     return out + b"".join(e[p:] for e, p in zip(enc, [0] + prefix))
 
 
@@ -440,21 +445,25 @@ def _new_file() -> str:
 
 class Writer:
     """Writes a new database directory at ``root``: ``put`` each key once
-    (values over ``max_inline_value_bytes`` go to data files at once),
-    then ``commit`` writes the B-tree and the manifest."""
+    (values over ``max_inline_value_bytes`` go to data files at once) or
+    ``put_ref`` it, then ``commit`` writes the B-tree and the manifest."""
 
     def __init__(self, root: str):
         self.root = root
         self.config = Config(uuid.uuid4().bytes, 0, MAX_INLINE_VALUE_BYTES,
                              MAX_DECODED_NODE_BYTES, VERSION_TREE_ARITY_LOG2, (1, 0))
         os.makedirs(os.path.join(root, "d"), exist_ok=True)
-        self.entries: dict[bytes, bytes | tuple[str, int, int]] = {}
+        # key -> inline bytes, or (base, data file, offset, length)
+        self.entries: dict[bytes, bytes | tuple[str, str, int, int]] = {}
         self._file: tuple[str, object] | None = None
         self._offset = 0
 
-    def put(self, key: bytes, value: bytes) -> None:
+    def _new_key(self, key: bytes) -> None:
         if key in self.entries:
             raise ValueError(f"key {key!r} written twice")
+
+    def put(self, key: bytes, value: bytes) -> None:
+        self._new_key(key)
         if len(value) <= self.config.max_inline_value_bytes:
             self.entries[key] = bytes(value)
             return
@@ -466,8 +475,14 @@ class Writer:
             self._offset = 0
         rel, f = self._file
         f.write(value)
-        self.entries[key] = (rel, self._offset, len(value))
+        self.entries[key] = ("", rel, self._offset, len(value))
         self._offset += len(value)
+
+    def put_ref(self, key: bytes, base: str, rel: str, offset: int, length: int) -> None:
+        """``key``'s value is ``length`` bytes at ``offset`` of the data file
+        ``base + rel`` (relative to ``root``), written by another database."""
+        self._new_key(key)
+        self.entries[key] = (base, rel, offset, length)
 
     def _close_file(self) -> None:
         if self._file is not None:
@@ -489,19 +504,19 @@ class Writer:
     def _leaf(self, items: list) -> bytes:
         keys = [k for k, _ in items]
         indirect = [v for _, v in items if not isinstance(v, bytes)]
-        files = sorted({v[0] for v in indirect})
-        fid = {p: i for i, p in enumerate(files)}
+        files = sorted({v[:2] for v in indirect}, key=lambda f: f[0] + f[1])
+        fid = {f: i for i, f in enumerate(files)}
         out = bytes([0]) + _write_files(files) + _varint(len(items)) + _write_keys(keys, False)
-        out += b"".join(_varint(len(v) if isinstance(v, bytes) else v[2]) for _, v in items)
+        out += b"".join(_varint(len(v) if isinstance(v, bytes) else v[3]) for _, v in items)
         out += b"".join(_varint(0 if isinstance(v, bytes) else 1) for _, v in items)
-        out += b"".join(_varint(fid[v[0]]) for v in indirect)
-        out += b"".join(_varint(v[1]) for v in indirect)
+        out += b"".join(_varint(fid[v[:2]]) for v in indirect)
+        out += b"".join(_varint(v[2]) for v in indirect)
         return out + b"".join(v for _, v in items if isinstance(v, bytes))
 
     def _interior(self, height: int, children: list) -> bytes:
         files = sorted({c[1] for c in children})
         fid = {p: i for i, p in enumerate(files)}
-        out = bytes([height]) + _write_files(files) + _varint(len(children))
+        out = bytes([height]) + _write_files([("", f) for f in files]) + _varint(len(children))
         out += _write_keys([c[0] for c in children], True)
         out += b"".join(_varint(fid[c[1]]) for c in children)
         out += b"".join(_varint(0) for _ in children)  # each node is its own file
@@ -515,7 +530,7 @@ class Writer:
         limit = self.config.max_decoded_node_bytes - 64
         runs, run, size = [], [], 0
         for k, v in items:
-            n = len(k) + (len(v) if isinstance(v, bytes) else 40) + 16
+            n = len(k) + (len(v) if isinstance(v, bytes) else 40 + len(v[0]) + len(v[1])) + 16
             if run and size + n > limit:
                 runs.append(run)
                 run, size = [], 0
@@ -524,16 +539,17 @@ class Writer:
         runs.append(run)
         return runs
 
-    def commit(self) -> None:
+    def commit(self) -> dict[bytes, bytes | tuple[str, int, int]]:
         """Write the B-tree and the manifest (the database's commit point),
-        each file synced."""
+        each file synced. Returns the entries this database's own files
+        hold: key -> inline value, or (data file, offset, length)."""
         self._close_file()
         items = sorted(self.entries.items())
         level, height = [], 0
         if items:
             for run in self._leaves(items):
                 rel, n = self._write_node(self._leaf(run))
-                ind = sum(v[2] for _, v in run if not isinstance(v, bytes))
+                ind = sum(v[3] for _, v in run if not isinstance(v, bytes))
                 level.append((run[0][0], rel, n, len(run), n, ind))
             while len(level) > 1:
                 height += 1
@@ -543,10 +559,10 @@ class Writer:
         manifest = _write_config(self.config)
         if level:
             _, rel, n, keys, tree_bytes, ind = level[0]
-            manifest += _write_files([rel])
+            manifest += _write_files([("", rel)])
             root = (0, 0, n, keys, tree_bytes, ind)
         else:
-            manifest += _write_files([""])
+            manifest += _write_files([("", "")])
             root = (0, NO_ROOT, NO_ROOT, 0, 0, 0)
         manifest += _varint(1) + _varint(1) + bytes([height])  # one version: generation 1
         manifest += b"".join(_varint(x) for x in root)
@@ -556,6 +572,8 @@ class Writer:
             f.write(encode_frame(manifest, MANIFEST_MAGIC))
             f.flush()
             os.fsync(f.fileno())
+        return {k: v if isinstance(v, bytes) else v[1:] for k, v in self.entries.items()
+                if isinstance(v, bytes) or not v[0]}
 
     def _interior_entry(self, height: int, children: list) -> tuple:
         rel, n = self._write_node(self._interior(height, children))

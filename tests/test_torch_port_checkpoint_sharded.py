@@ -57,7 +57,9 @@ def _batch(b=B, seed=3):
 
 
 def _leaves(tree, path=()):
-    """{path: leaf} of nested dicts (empty dicts have none)."""
+    """{path: leaf} of nested dicts, tuples and lists (empty ones have none)."""
+    if isinstance(tree, (tuple, list)):
+        tree = {str(i): v for i, v in enumerate(tree)}
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():

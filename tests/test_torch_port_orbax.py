@@ -480,6 +480,142 @@ class TestTrainer:
         _assert_tree_equal(ckpt.restore_checkpoint(path), want)
 
 
+# ---- the optax structure: the JAX package's fit resumes a port-written run ------------
+
+# the two option sets: none, and every optimizer option (bf16 moments
+# through adam_compact); the JAX fit's resume template has no ema_params,
+# so with an EMA it refuses its own directories (below)
+FIT_OPTS = {"plain": {},
+            "all": dict(grad_accum=2, grad_clip_norm=1.0, warmup_steps=4, ema_decay=0.999,
+                        adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16")}
+NO_EMA = {k: v for k, v in FIT_OPTS["all"].items() if k != "ema_decay"}
+
+
+def _tree_md(path: str) -> dict:
+    """{key path: (key types, value type, skip_deserialize)} of ``_METADATA``."""
+    with open(os.path.join(path, "_METADATA")) as f:
+        md = json.load(f)["tree_metadata"]
+    return {k: ([m["key_type"] for m in v["key_metadata"]], v["value_metadata"]["value_type"],
+                v["value_metadata"]["skip_deserialize"]) for k, v in md.items()}
+
+
+def _jtrainer(opts, root, epochs=1, name="j"):
+    return JTrainer(JModelConfig(**TINY), JTrainConfig(epochs=epochs, exp_name=name,
+                                                       batch_size=2, **opts),
+                    exp_root=str(root), use_native_loader=False)
+
+
+@pytest.fixture(scope="module")
+def port_fits(tiny_h5, tmp_path_factory):
+    """{option set: the experiment root of a port ``fit`` of one epoch with
+    ``checkpoint_format="orbax"``, and the trainer's state}."""
+    out = {}
+    for name, opts in {**FIT_OPTS, "no_ema": NO_EMA}.items():
+        root = tmp_path_factory.mktemp(f"portfit_{name}")
+        tr = Trainer(ModelConfig(**TINY), TrainConfig(epochs=1, exp_name=name, batch_size=2,
+                                                      **opts),
+                     exp_root=str(root), device="cpu")
+        tr.fit(tiny_h5, checkpoint_format="orbax")
+        out[name] = (str(root), tr.jax_state_dict(1))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_writes(tmp_path_factory):
+    """{option set: (the directory the JAX package's
+    ``save_checkpoint_sharded`` wrote of the JAX Trainer's fresh state of
+    that config, that state as a template)}."""
+    from ml_music_style_transfer_tpu.train.optim import get_param_ema
+
+    out = {}
+    for name, opts in FIT_OPTS.items():
+        root = tmp_path_factory.mktemp(f"jaxwrite_{name}")
+        jtr = _jtrainer(opts, root)
+        params, opt = jtr.init_state(0)
+        state = {"params": params, "opt_state": opt, "epoch": 1,
+                 "scheduler": jtr.scheduler.state_dict()}
+        if "ema_decay" in opts:
+            state["ema_params"] = get_param_ema(opt)
+        out[name] = (jckpt.save_checkpoint_sharded(str(root / "j"), 1, state, wait=True), state)
+    return out
+
+
+class _Resumed(Exception):
+    pass
+
+
+class TestOptaxStructure:
+    @pytest.mark.parametrize("opts", list(FIT_OPTS))
+    def test_tree_metadata_equals_the_jax_packages_write(self, opts, port_fits, jax_writes):
+        """Key path by key path, key types (sequence indices 1, dict keys
+        and named tuples' fields 2) and value types (``jax.Array``,
+        ``scalar``; ``EmptyState`` ``None``, ``skip_state`` ``Tuple``,
+        ``hyperparams_states`` ``Dict``): the port's ``fit`` wrote what the
+        JAX package's ``save_checkpoint_sharded`` writes of the JAX
+        Trainer's state of the same config."""
+        root = port_fits[opts][0]
+        port = _tree_md(ckpt.checkpoint_path(os.path.join(root, opts), 1, "orbax"))
+        want = _tree_md(jax_writes[opts][0])
+        assert port == want
+        types = {v[1] for v in want.values()}
+        assert {"jax.Array", "scalar", "None", "Dict"} <= types
+        assert ("Tuple" in types) == (opts == "all")
+
+    @pytest.mark.parametrize("opts", ["plain", "no_ema"])
+    def test_jax_fit_resumes_a_port_fit(self, opts, port_fits, tiny_h5, monkeypatch):
+        """The JAX package's ``Trainer.fit(resume=True,
+        checkpoint_format="orbax")`` in the port's experiment directory
+        restores the port's directory into its optax template and goes on
+        to train at the port's epoch from the port's params and optimizer
+        state, leaf for leaf (its first epoch is stopped on entry); with no
+        option and with every option but the EMA."""
+        from flax import serialization
+
+        root, want = port_fits[opts]
+        seen = {}
+
+        def spy(self, params, opt_state, dataset, epoch, rng, **kw):
+            seen["at"] = (epoch, jax.device_get(params),
+                          serialization.to_state_dict(jax.device_get(opt_state)))
+            raise _Resumed
+
+        monkeypatch.setattr(JTrainer, "train_epoch", spy)
+        jtr = _jtrainer({"plain": {}, "no_ema": NO_EMA}[opts], root, epochs=2, name=opts)
+        with pytest.raises(_Resumed):
+            jtr.fit(tiny_h5, resume=True, checkpoint_format="orbax")
+        epoch, params, opt = seen["at"]
+        assert epoch == 1
+        _assert_tree_equal(_msgpack_layout(params), _msgpack_layout(want["params"]))
+        _assert_tree_equal(_msgpack_layout(opt),
+                           _msgpack_layout(weights.flax_state_dict(want["opt_state"])))
+
+    def test_with_an_ema_the_jax_fit_refuses_port_and_jax_directories_alike(
+            self, port_fits, jax_writes, tiny_h5):
+        """With every option and an EMA, the JAX ``fit``'s resume template
+        lacks ``ema_params``, so orbax refuses the JAX package's own
+        directory; it refuses the port's with the same error, and the JAX
+        restore into that template plus ``ema_params`` takes the port's
+        directory, equal to the port's state."""
+        from flax import serialization
+
+        root, want = port_fits["all"]
+        jpath, template = jax_writes["all"]
+        shutil.copy(os.path.join(root, "all", "hyperparams.json"), os.path.dirname(jpath))
+        errors = []
+        for exp_root, name in ((os.path.dirname(os.path.dirname(jpath)), "j"), (root, "all")):
+            with pytest.raises(ValueError, match="tree structures do not match") as e:
+                _jtrainer(FIT_OPTS["all"], exp_root, epochs=2, name=name).fit(
+                    tiny_h5, resume=True, checkpoint_format="orbax")
+            assert "ema_params" in str(e.value)
+            errors.append(str(e.value).split("\n")[:2])
+        assert errors[0] == errors[1]
+        got = jckpt.restore_checkpoint_sharded(
+            ckpt.checkpoint_path(os.path.join(root, "all"), 1, "orbax"), template)
+        got["opt_state"] = serialization.to_state_dict(got["opt_state"])
+        _assert_tree_equal(_msgpack_layout(jax.device_get(got)),
+                           _msgpack_layout(weights.flax_state_dict(want)))
+
+
 # ---- corrupt directories ---------------------------------------------------------------
 
 def _root_node(path: str) -> str:

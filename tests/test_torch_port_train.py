@@ -25,7 +25,7 @@ from ml_music_style_transfer_tpu.ops.pallas import dropout as jdropout
 from ml_music_style_transfer_tpu.testing import synthetic
 from ml_music_style_transfer_tpu.train import checkpoint as jckpt
 from ml_music_style_transfer_tpu.train.loop import Trainer as JTrainer
-from ml_music_style_transfer_tpu_torch.compat import from_jax_params
+from ml_music_style_transfer_tpu_torch.compat import from_jax_params, weights
 from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
 from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
 from ml_music_style_transfer_tpu_torch.infer import AudioSynthesizer
@@ -349,8 +349,10 @@ class TestCheckpoint:
 
 def _assert_jax_restores(path, want):
     """The JAX package's host restore of an orbax directory is ``want``
-    (numpy leaves), leaf for leaf."""
-    got = jckpt.restore_checkpoint_sharded_host(path)
+    (numpy leaves), leaf for leaf, both in flax's state-dict layout (optax's
+    sequences keyed "0", "1", ...; its ``EmptyState`` as ``{}``)."""
+    got = weights.flax_state_dict(jckpt.restore_checkpoint_sharded_host(path))
+    want = weights.flax_state_dict(want)
 
     def eq(a, b, where):
         if isinstance(b, dict):

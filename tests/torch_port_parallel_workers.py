@@ -445,3 +445,231 @@ def param_bytes(rank):
     dt = distribute_tensor(torch.zeros(6, 4), mesh["model"], [Shard(0)])
     return {"whole": whole, "tp": pmesh.per_device_param_bytes(model),
             "dtensor": pmesh.per_device_param_bytes({"w": dt, "b": torch.zeros(3)})}
+
+
+# ---- orbax checkpoints on a mesh ---------------------------------------------------
+
+ORBAX_MESHES = ((2, 2), (4, 1))
+
+
+def _gather_spy():
+    """(restore, dtypes): every tensor an all-gather moves while the spy is
+    on (``comm.all_gather_cat``, and torch's all-gathers, which also carry
+    ``all_gather_object``'s pickles as uint8) is recorded by its dtype."""
+    from torch.distributed import distributed_c10d as c10d
+
+    from ml_music_style_transfer_tpu_torch.parallel import comm
+
+    seen = []
+    real = {(m, n): getattr(m, n) for m in (dist, c10d)
+            for n in ("all_gather", "all_gather_into_tensor")}
+    real_cat = comm.all_gather_cat
+
+    def wrap(fn, pick):
+        def spy(*a, **k):
+            seen.append(str(pick(*a, **k).dtype))
+            return fn(*a, **k)
+        return spy
+
+    for (m, n), fn in real.items():
+        setattr(m, n, wrap(fn, lambda out, x, *a, **k: x))
+    comm.all_gather_cat = wrap(real_cat, lambda x, *a, **k: x)
+
+    def restore():
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+        comm.all_gather_cat = real_cat
+    return restore, seen
+
+
+def _regions(tree):
+    """{key path: (offset, size)} of the ``Shard`` leaves of a JAX-layout tree."""
+    from ml_music_style_transfer_tpu_torch.train import orbax_format
+
+    return {k: (b.offset, b.size) for k, b in orbax_format.shards(tree).items()}
+
+
+def _boxes(tree):
+    """{key path: (shape, offset, size, dtype, written)} of the ``Shard``
+    leaves of a JAX-layout tree."""
+    from ml_music_style_transfer_tpu_torch.train import orbax_format
+
+    return {k: (b.shape, b.offset, b.size, b.dtype, b.write)
+            for k, b in orbax_format.shards(tree).items()}
+
+
+def _jax_np(tr, epoch):
+    """The trainer's whole JAX-layout state (gathered), in flax's layout."""
+    from ml_music_style_transfer_tpu_torch.compat import weights
+
+    return _tree_np(weights.flax_state_dict(tr.jax_state_dict(epoch)))
+
+
+def _restore_orbax(cfg, tkw, shape, path):
+    """A fresh trainer of ``shape`` restores ``path``: (epoch, whole state,
+    bytes read, the regions this rank read)."""
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    tr = Trainer(cfg, TrainConfig(**tkw), device="cpu",
+                 mesh=pmesh.make_mesh(*shape, device="cpu"))
+    tr.init_state(1)
+    stats = {}
+    epoch = tr.load_orbax_sharded(path, stats)
+    regions = _regions({k: v for k, v in tr.orbax_state(0).items() if k != "ema_params"})
+    return {"epoch": epoch, "state": _jax_np(tr, 1), "value_bytes": stats["value_bytes"],
+            "regions": regions}
+
+
+def orbax_mesh(rank, batch, tmp, jax_dir, jax_msgpack, h5):
+    """Orbax checkpoints on (2, 2) and (4, 1) meshes with ZeRO-1 and an EMA:
+    each mesh's trainer saves its own blocks (the all-gathers seen while
+    it saves; each rank's blocks against ``loop.rank_orbax_state``'s) and
+    fresh trainers of both meshes restore it; rank 0 plays the 4 ranks of
+    the (2, 2) save in turn into a second directory; a rank whose write
+    fails; ``fit`` with ``"orbax"`` on the (2, 2) mesh and its resume; the
+    JAX package's (2, 2) directory restored on both meshes, and its
+    msgpack. The JAX package's directory is written by the calling process
+    while the ranks run: they wait for it, last."""
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train import loop, orbax_format
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    cfg = ModelConfig(**TINY_KW)
+    tkw = dict(batch_size=len(batch["weight"]), zero_opt=True, ema_decay=0.9)
+    out = {}
+    for shape in ORBAX_MESHES:
+        name = f"{shape[0]}x{shape[1]}"
+        tr = Trainer(cfg, TrainConfig(**tkw), device="cpu",
+                     mesh=pmesh.make_mesh(*shape, device="cpu"))
+        tr.init_state(0)
+        _train(tr, batch, 1)
+        res = {"want": _jax_np(tr, 1)}
+        restore, seen = _gather_spy()
+        try:
+            path = ckpt.save_checkpoint_orbax(os.path.join(tmp, name), 1, tr.orbax_state(1),
+                                              wait=True)
+        finally:
+            restore()
+        res["save_gathers"], res["path"] = seen, path
+        res["restored"] = {f"{s[0]}x{s[1]}": _restore_orbax(cfg, tkw, s, path)
+                           for s in ORBAX_MESHES}
+        whole = tr.state_dict(1)  # a collective: every rank
+        axes = {"data": shape[0], "model": shape[1]}
+        res["boxes"] = (_boxes(tr.orbax_state(1)),
+                        _boxes(loop.rank_orbax_state(whole, tr.cfg, axes, rank)))
+        if shape == (2, 2):
+            if rank == 0:  # one process plays the 4 ranks
+                play = os.path.join(tmp, "played", "checkpoint-1.orbax")
+                os.makedirs(f"{play}.tmp")
+                blocks = [loop.rank_orbax_state(whole, tr.cfg, axes, r) for r in range(4)]
+                entries = [orbax_format.write_shards(f"{play}.tmp", r, b)
+                           for r, b in enumerate(blocks)]
+                orbax_format.commit(f"{play}.tmp", play, orbax_format.layout(blocks[0]),
+                                    entries)
+                res["played"] = play
+            out["failed_write"] = _failed_write(tr, os.path.join(tmp, "fail"))
+        del whole
+        out[name] = res
+    out["fit"] = _orbax_fit(rank, cfg, h5, batch, os.path.join(tmp, "exp"))
+    _wait_for(jax_dir)
+    out["jax"] = {f"{s[0]}x{s[1]}": _restore_orbax(cfg, tkw, s, jax_dir) for s in ORBAX_MESHES}
+    tr = Trainer(cfg, TrainConfig(**tkw), device="cpu",
+                 mesh=pmesh.make_mesh(*ORBAX_MESHES[0], device="cpu"))
+    tr.init_state(2)
+    tr.load_state(ckpt.restore_checkpoint(jax_msgpack))
+    out["jax_msgpack"] = _jax_np(tr, 1)
+    return out
+
+
+def _wait_for(path, timeout=600.0):
+    """Wait until ``path`` exists (a directory the caller's process writes
+    meanwhile, and commits by renaming); a ``FAILED`` file beside it
+    raises."""
+    import time
+
+    t0 = time.monotonic()
+    failed = os.path.join(os.path.dirname(path), "FAILED")
+    while not os.path.exists(path):
+        if os.path.exists(failed) or time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"{path} was not written")
+        time.sleep(0.2)
+
+
+def _failed_write(tr, exp_dir):
+    """Rank 2's write of ``tr``'s state raises: every rank's save raises,
+    nothing is committed."""
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train import orbax_format
+
+    real = orbax_format.write_shards
+
+    def broken(tmp, r, tree):
+        if r == 2:
+            raise OSError("disk full")
+        return real(tmp, r, tree)
+
+    orbax_format.write_shards = broken
+    try:
+        ckpt.save_checkpoint_orbax(exp_dir, 1, tr.orbax_state(1), wait=True)
+        err = None
+    except OSError as e:
+        err = str(e)
+    finally:
+        orbax_format.write_shards = real
+    dist.barrier()
+    return {"error": err, "committed": os.path.exists(os.path.join(exp_dir, "checkpoint-1.orbax"))}
+
+
+def _orbax_fit(rank, cfg, h5, batch, exp_root):
+    """``fit`` one epoch on the (2, 2) mesh with ZeRO-1 and ``"orbax"`` (the
+    all-gathers seen inside its saves), then: the fitted trainer and a
+    fresh one restored from the directory take the same step; a third
+    trainer resumes the run with ``fit(resume=True)``."""
+    from ml_music_style_transfer_tpu_torch.train import checkpoint as ckpt
+    from ml_music_style_transfer_tpu_torch.train.loop import Trainer
+
+    mesh = pmesh.make_mesh(2, 2, device="cpu")
+
+    def trainer(epochs, seed=None):
+        tr = Trainer(cfg, TrainConfig(epochs=epochs, test_freq=1, exp_name="ofit", batch_size=2,
+                                      zero_opt=True), exp_root=exp_root, device="cpu", mesh=mesh)
+        if seed is not None:
+            tr.init_state(seed)
+        return tr
+
+    seen_all = []
+    real_save, real_state = ckpt.save_checkpoint_orbax, Trainer.orbax_state
+
+    def spied(fn):
+        def call(*a, **k):
+            restore, seen = _gather_spy()
+            try:
+                return fn(*a, **k)
+            finally:
+                restore()
+                seen_all.extend(seen)
+        return call
+
+    ckpt.save_checkpoint_orbax = spied(real_save)
+    Trainer.orbax_state = spied(real_state)
+    try:
+        fitted = trainer(1)
+        fitted.fit(h5, checkpoint_format="orbax")
+        ckpt.wait_for_async_saves()
+    finally:
+        ckpt.save_checkpoint_orbax, Trainer.orbax_state = real_save, real_state
+    exp_dir = os.path.join(exp_root, "ofit")
+    path, epoch = ckpt.latest_checkpoint(exp_dir)
+    two = {k: v[:2] for k, v in batch.items()}
+    want = _train(fitted, two, 1)[0]
+    restored = trainer(1, seed=3)
+    res = {"epoch": restored.load_orbax_sharded(path), "latest": os.path.basename(path),
+           "save_gathers": seen_all}
+    res["step_equal"] = _train(restored, two, 1)[0] == want and all(
+        torch.equal(a, b) for a, b in zip(restored.model.full_state_dict().values(),
+                                          fitted.model.full_state_dict().values()))
+    _, exp = trainer(2).fit(h5, resume=True, checkpoint_format="orbax")
+    res["loss_history"] = exp.loss_history
+    if rank == 0:
+        res["listing"] = sorted(os.listdir(exp_dir))
+    return res
