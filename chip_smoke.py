@@ -3,8 +3,9 @@
 optimizer options and checkpoints, the autoencoder family, its deployment
 programs, support code and daemon soak, its multi-device layer, its sharded
 asynchronous checkpoints, WAV decoder and profile scripts, its orbax
-checkpoints (on one device and on a mesh), and its fused conv-block kernel
-on one NVIDIA GPU and check them. Each phase
+checkpoints (on one device and on a mesh), Griffin-Lim's dispatch by shape
+and the bench scripts, and its fused conv-block kernel on one NVIDIA GPU
+and check them. Each phase
 prints its seconds.
 
     python3 chip_smoke.py
@@ -229,6 +230,18 @@ scipy and the standard library. Phases, each reported on its own lines:
      launches of each glue kernel); ``fit(resume=True)`` from it on the
      (1, 1) mesh, one epoch of 2 steps (20 dropout launches, finite
      losses);
+  24. Griffin-Lim's dispatch by shape and the last scripts
+     (``dispatch_scripts_phase``): each input the glue kernels do not take
+     (a ``length``, ``win_length`` 1024, hops 128/512/1024, 8 and 20
+     frames, a (2, 2, 1025, 20) batch) answers under the default arguments
+     with 0 glue launches, within 1e-4 of the peak of the istft -> stft
+     loop, and raises under ``use_pallas_glue=True``; a 1720-frame clip
+     launches each glue kernel 300 times; ``stft``'s pad modes on the card
+     against the CPU; then ``scripts/bench_inference.py`` (full width, a
+     10 s clip, 30 iterations, the one-pass probe up to 240 s, which must
+     serve 240 s), ``bench_preprocess.py`` (its full 4 songs of 90 s;
+     ``auto`` within 1.25x of the best manual backend), ``bench_dft_gl.py`` (30
+     iterations) and ``bench_gl_kernels.py``, each through its ``main``;
   12. fused conv kernel: the SASS of ``libfused_conv.so`` must hold wgmma
      (``HGMMA``) and TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``)
      or ``cp.async`` (``LDGSTS``); one full-width forward's 64 conv1x3 ->
@@ -250,7 +263,9 @@ their counts over phases 4, 6-9, 15 (three requests), 17 (the programs and
 the live runs they are held to), 17b (the packages' runs, the timing and
 profiled runs), 18, 19 (the soak), 20 (sharded Griffin-Lim, two whole
 clips and two bulk clips), 21 (three requests, 120 daemon requests), 22
-and 23 (two requests each), the dropout kernel's
+and 23 (two requests each) and 24 (the 1720-frame clip and the scripts'
+Griffin-Lim runs; the line before phase 24 prints the sums over phases
+3-23), the dropout kernel's
 over phases 11 (12 steps), 13 (the resident epoch and the evaluation), 14
 (12 steps), 15 (4 microbatch calls and 24 timed steps), 18 (8 steps, 2 of
 them NaN-debugged), 20 (the mesh step), 21 (the steps around the
@@ -876,17 +891,10 @@ TIMED_SHAPE = (16, 384, 860)  # the largest dropout call of a batch-16 step
 
 def dense_concat_shapes(batch: int = 16) -> list[tuple[int, int, int]]:
     """The (B, C, T) tensors the five DenseConcats hand to dropout at full
-    width: hidden (1.5 C) and output (C) at C = 4096..256, T = 53..860."""
-    from ml_music_style_transfer_tpu_torch.config import ModelConfig
-    from ml_music_style_transfer_tpu_torch.models import temporal_ladder
+    width (``scripts/bench_gl_kernels.dense_concat_shapes``)."""
+    from ml_music_style_transfer_tpu_torch.scripts import bench_gl_kernels
 
-    cfg = ModelConfig()
-    t_enc = temporal_ladder()["encoder"]
-    shapes = []
-    for i in range(cfg.depth):
-        c, t = cfg.midi_channel_plan[-(i + 1)], t_enc[-(i + 1)]
-        shapes += [(batch, int(c * 1.5), t), (batch, c, t)]
-    return shapes
+    return bench_gl_kernels.dense_concat_shapes(batch)
 
 
 def dropout_phase(torch, dk):
@@ -3312,6 +3320,166 @@ def orbax_mesh_phase(torch, dk, glue, binf, tmp):
     return dropout, 2 * gl
 
 
+# ---- phase 24: Griffin-Lim's dispatch by shape, and the last scripts ------------
+
+DISPATCH_ITERS = 4  # Griffin-Lim iterations of each unsupported input
+
+
+def _dispatch_inputs(torch):
+    """(name, magnitude on the card, griffinlim keyword arguments): the
+    inputs the glue kernels do not take, each a seeded harmonic clip's
+    |STFT|, as tests/test_torch_port_gl_dispatch.py builds them."""
+    from ml_music_style_transfer_tpu_torch.ops import stft as tstft
+
+    def magnitude(n_frames, lead=()):
+        t = torch.arange(256 * (n_frames - 1), dtype=torch.float64) / 44100.0
+        y = sum(a * torch.sin(2 * math.pi * f * t)
+                for a, f in ((0.5, 220.0), (0.25, 661.0), (0.1, 1750.0)))
+        mag = tstft.stft(y.float().cuda(), 2048, 256).abs()
+        scale = torch.arange(1, math.prod(lead) + 1, device="cuda", dtype=torch.float32)
+        return (scale[:, None, None] * mag).reshape(*lead, *mag.shape)
+
+    return [("length", magnitude(40), dict(length=10084)),
+            ("win_length 1024", magnitude(40), dict(win_length=1024)),
+            ("hop 128", magnitude(40), dict(hop_length=128)),
+            ("hop 512", magnitude(40), dict(hop_length=512)),
+            ("hop 1024", magnitude(40), dict(hop_length=1024)),
+            ("8 frames", magnitude(8), {}),
+            ("20 frames", magnitude(20), {}),
+            ("(2, 2, 1025, 20) batch", magnitude(20, (2, 2)), {})]
+
+
+def dispatch_scripts_phase(torch, dk, glue, tstft, tmp) -> int:
+    """Griffin-Lim's dispatch by shape on the card, then the port's last
+    scripts at reduced sizes. (a) Each input the glue kernels do not take
+    (a ``length``, ``win_length`` 1024, hops 128/512/1024, 8 and 20 frames,
+    a (2, 2, 1025, 20) batch) answers under the default arguments on the
+    istft -> stft loop with 0 glue launches, within 1e-4 of the peak of the
+    same call with ``use_pallas_glue=False``, and raises under ``True``; a
+    1720-frame clip under the default launches each glue kernel 300 times;
+    ``stft``'s ``pad_mode`` (reflect, constant, edge) on the card within
+    1e-4 of the peak of the CPU's. (b) ``scripts/bench_inference.py`` at
+    full width (a 10 s clip, 30 iterations, no daemon, the one-pass probe
+    up to 240 s), ``bench_preprocess.py`` (its full 4 songs of 90 s),
+    ``bench_dft_gl.py`` (30 iterations) and ``bench_gl_kernels.py`` through
+    their ``main``s, each with its own checks; the JSONs are written under
+    ``tmp``. Returns the glue kernels' launches of the phase: every one is
+    a Griffin-Lim iteration (the dropout kernel's launches in
+    ``bench_gl_kernels.py`` time it against its plain version, as phase 10
+    does, and stay out of its count)."""
+    from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
+    from ml_music_style_transfer_tpu_torch.scripts import (bench_dft_gl, bench_gl_kernels,
+                                                           bench_inference, bench_preprocess)
+
+    t_phase = time.perf_counter()
+    gl_launches = 0
+    for name, mag, kw in _dispatch_inputs(torch):
+        phase = 2 * np.pi * torch.rand(mag.shape, generator=torch.Generator().manual_seed(1))
+        glue.reset_launches()
+        with torch.inference_mode():
+            got = tgl.griffinlim(mag, n_iter=DISPATCH_ITERS, init_phase=phase, device="cuda",
+                                 **kw)
+            torch.cuda.synchronize()
+            launched = dict(glue.LAUNCHES)
+            want = tgl.griffinlim(mag, n_iter=DISPATCH_ITERS, init_phase=phase,
+                                  use_pallas_glue=False, device="cuda", **kw)
+        err = float((got - want).abs().max() / want.abs().max())
+        try:
+            tgl.griffinlim(mag, n_iter=1, init_phase=phase, use_pallas_glue=True, device="cuda",
+                           **kw)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        print(f"dispatch: {name}: output {tuple(got.shape)}, glue launches {launched}, "
+              f"max_abs_err/peak against use_pallas_glue=False {err:.3e} (tolerance 1e-4); "
+              f"use_pallas_glue=True raises: {bool(refused)}")
+        check(not any(launched.values()), f"dispatch: {name} launched the glue kernels")
+        check(err <= 1e-4, f"dispatch: {name} disagrees with the istft -> stft loop")
+        check("at least 24 frames" in refused, f"dispatch: {name}: use_pallas_glue=True "
+              f"did not raise naming the rule ({refused!r})")
+    spec = torch.rand((1025, 1720), generator=torch.Generator().manual_seed(2),
+                      device="cpu").cuda() * 8
+    glue.reset_launches()
+    with torch.inference_mode():
+        wav = tgl.griffinlim_from_log_power(spec, n_iter=N_ITER, device="cuda")
+        torch.cuda.synchronize()
+    gl_launches += counted(glue, N_ITER, "dispatch: a 1720-frame clip")
+    check(wav.shape == (256 * 1719,) and bool(torch.isfinite(wav).all()),
+          "dispatch: the 1720-frame clip's waveform")
+    print(f"dispatch: a 1720-frame clip under the default arguments: {dict(glue.LAUNCHES)} "
+          f"launches ({N_ITER} iterations)")
+    y = torch.randn((2, 20000), generator=torch.Generator().manual_seed(5)) + 0.5
+    for mode in ("reflect", "constant", "edge"):
+        a = tstft.stft(y.cuda(), 2048, 256, pad_mode=mode).cpu()
+        b = tstft.stft(y, 2048, 256, pad_mode=mode)
+        e = float((a - b).abs().max() / b.abs().max())
+        print(f"dispatch: stft pad_mode={mode!r} card vs CPU max_abs_err/peak {e:.3e} "
+              f"(tolerance 1e-4)")
+        check(e <= 1e-4, f"stft pad_mode={mode!r} differs between the card and the CPU")
+    t_dispatch = time.perf_counter() - t_phase
+    runs = {}
+
+    def run(name, fn, argv):
+        glue.reset_launches()
+        dk.reset_launches()
+        t = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        runs[name] = dict(s=time.perf_counter() - t, glue=dict(glue.LAUNCHES),
+                          dropout=dict(dk.LAUNCHES))
+        print(f"scripts: {name} {runs[name]['s']:.1f} s, glue launches {runs[name]['glue']}, "
+              f"dropout launches {runs[name]['dropout']}", flush=True)
+        synth_mod.clear_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    n_iter = 30
+    metrics = run("bench_inference", bench_inference.main, [
+        "--width-mult", "1.0", "--seconds", "10", "--daemon-requests", "0",
+        "--probe-cap-seconds", "240", "--n-iter", str(n_iter), "--out-dir", tmp])
+    with open(os.path.join(tmp, "SERVING_WHOLECLIP_H100.json")) as f:
+        wc = json.load(f)
+    probe = wc["max_onepass_probe"]
+    # 4 serving runs, 4 Griffin-Lim, 4 whole clips, 4 x 4 bulk clips, the probe's clips
+    want = n_iter * (4 + 4 + 4 + 16) + probe["n_iter"] * len(probe["seconds"])
+    check(set(metrics) == {"serving_s_per_30s_clip", "griffinlim_s_per_10s_clip",
+                           "whole_clip_s_per_30s_clip", "batch_griffinlim_s_per_clip"},
+          f"bench_inference metrics {sorted(metrics)}")
+    check(all(math.isfinite(v) for v in wc["divergence"].values() if isinstance(v, float)),
+          "bench_inference: divergence not finite")
+    check(probe["longest_ok_s"] >= 240.0, f"bench_inference: longest one-pass clip {probe}")
+    gl_launches += counted(glue, want, "bench_inference")
+    print(f"scripts: bench_inference whole clip at full width: {json.dumps(wc)}")
+
+    # at its full size: at 2 songs of 30 s the auto probe's fixed ~0.06 s made
+    # auto 1.31x the best manual 0.19 s on an H100 (PERF.md)
+    pp = run("bench_preprocess", bench_preprocess.main, ["--out", os.path.join(tmp, "pp.json")])
+    check(pp["spec_max_abs_diff"] < 1e-3, f"bench_preprocess: spectrograms differ by "
+          f"{pp['spec_max_abs_diff']:.3e} from the reference-shaped emulation")
+    check(not any(runs["bench_preprocess"]["glue"].values()),
+          "bench_preprocess launched the glue kernels")
+
+    dft = run("bench_dft_gl", bench_dft_gl.main, ["--n-iter", "30"])
+    for v in ("dft_bf16", "dft_tf32", "dft_f32"):
+        check(abs(dft[v]["spectral_err"] - dft["fft"]["spectral_err"]) < 1e-2,
+              f"bench_dft_gl: {v}'s spectral error {dft[v]['spectral_err']:.5f} against the "
+              f"fft loop's {dft['fft']['spectral_err']:.5f}")
+    launched = set(runs["bench_dft_gl"]["glue"].values())
+    check(len(launched) == 1, f"bench_dft_gl: glue launches {runs['bench_dft_gl']['glue']}")
+    gl_launches += launched.pop()
+
+    kern = run("bench_gl_kernels", bench_gl_kernels.main, [])
+    check(kern["griffinlim"]["waveform_rel_diff"] < 1.0,
+          "bench_gl_kernels: Griffin-Lim with and without the glue kernels diverged")
+    gl_launches += counted(glue, 4 * N_ITER, "bench_gl_kernels")  # a warm-up and 3 timed runs
+    print(f"phase 24: dispatch {t_dispatch:.1f} s, "
+          + ", ".join(f"{k} {v['s']:.1f} s" for k, v in runs.items())
+          + f"; glue launches {gl_launches} per kernel")
+    return gl_launches
+
+
 # ---- phase 12: fused conv kernel vs plain, and against cuDNN ----------------
 
 FULL_FORWARD_BLOCKS = 64  # conv1x3 -> IN -> LReLU launches of one full-width forward
@@ -3597,6 +3765,15 @@ def main() -> None:
     dropout_launches += om_dropout
     gl_launches += om_gl
     check(not any(fc.LAUNCHES.values()), "phase 23 launched the fused conv kernel")
+    synth_mod.clear_caches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launches over phases 3-23: {gl_launches} of each glue kernel, {dropout_launches} "
+          "of the dropout kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        gl_launches += timed("24 (dispatch and scripts)", dispatch_scripts_phase, torch, dk, glue,
+                             tstft, tmp)
+    check(not any(fc.LAUNCHES.values()), "phase 24 launched the fused conv kernel")
     synth_mod.clear_caches()
     gc.collect()
     torch.cuda.empty_cache()

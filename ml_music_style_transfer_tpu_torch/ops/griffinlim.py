@@ -7,12 +7,15 @@ librosa.griffinlim update. ``jax.random`` keys become ``torch.Generator``s,
 so the random phase differs from the JAX package's by design; pass
 ``init_phase`` to compare the two.
 
-With ``use_pallas_glue=True`` (the default) each iteration is
-irfft -> consistency glue -> rfft, the glue being the hand-written CUDA
-kernels of ``ops/kernels/gl_glue.py`` on a CUDA tensor and their plain
-version on a CPU tensor; traced by ``torch.export``, the glue is their
-``mmst_torch`` operators, so an exported program launches the same
-kernels. With ``False`` the iteration is istft -> stft.
+With the glue, each iteration is irfft -> consistency glue -> rfft, the
+glue being the hand-written CUDA kernels of ``ops/kernels/gl_glue.py`` on
+a CUDA tensor and their plain version on a CPU tensor; traced by
+``torch.export``, the glue is their ``mmst_torch`` operators, so an
+exported program launches the same kernels. Without it the iteration is
+istft -> stft. ``use_pallas_glue=None`` (the default) decides by shape, as
+the JAX package does (``resolve_pallas_glue``): the glue wherever the
+kernels take the clip, the istft -> stft loop on any other input (a
+``length``, a shorter window, another hop, fewer than 24 frames).
 
 ``transform="dft"`` swaps the two FFTs for two matmuls on a packed real
 [Re|Im] state (the JAX package's ``_gl_steps_dft``), with the same glue
@@ -41,6 +44,42 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return _stft.to_device(x.to(torch.float32), device)
 
 
+def resolve_pallas_glue(n_frames: int, n_fft: int, hop_length: int,
+                        win_length: int) -> bool:
+    """Whether Griffin-Lim runs the glue kernels on one clip of this shape:
+    the JAX package's rule (``gl_glue.supported``, win_length == n_fft).
+    The shape alone decides, never the device: on a CPU tensor the glue is
+    the kernels' plain version."""
+    return win_length == n_fft and _glue.supported(n_frames, n_fft, hop_length)
+
+
+def resolve_transform(ndim: int, n_fft: int, win_length: int, length: int | None) -> str:
+    """The transform pair of the iteration: "fft" for every shape. The JAX
+    package takes "dft" on a TPU; on the H100 the dft loop takes 2.1x the
+    fft loop's time per iteration (chip_smoke.py's dft phase, PERF.md). The
+    arguments are the JAX function's."""
+    return "fft"
+
+
+GLUE_RULE = ("the glue kernels take one (bins, frames) clip with hop = n_fft/8 and "
+             "hop % 4 == 0, at least 24 frames, win_length == n_fft and length=None")
+
+
+def _takes_glue(magnitude, hop: int, win_length: int, length, use_pallas_glue) -> bool:
+    """``use_pallas_glue`` resolved for ``magnitude``: None by the shape
+    (``resolve_pallas_glue``), True checked against it."""
+    n_fft = 2 * (magnitude.shape[-2] - 1)
+    fits = (magnitude.ndim == 2 and length is None
+            and resolve_pallas_glue(magnitude.shape[-1], n_fft, hop, win_length))
+    if use_pallas_glue is None:
+        return fits
+    if use_pallas_glue and not fits:
+        raise ValueError(f"use_pallas_glue=True, but {GLUE_RULE}; got magnitude "
+                         f"{tuple(magnitude.shape)}, hop {hop}, win_length {win_length}, "
+                         f"length {length} (use_pallas_glue=None runs the istft -> stft loop)")
+    return bool(use_pallas_glue)
+
+
 def griffinlim(
     magnitude,
     generator: torch.Generator | None = None,
@@ -50,7 +89,7 @@ def griffinlim(
     momentum: float = 0.99,
     length: int | None = None,
     init_phase=None,
-    use_pallas_glue: bool = True,
+    use_pallas_glue: bool | None = None,
     transform: str | None = None,
     device: str | torch.device | None = "cuda",
 ) -> torch.Tensor:
@@ -59,28 +98,36 @@ def griffinlim(
     ``generator`` draws the uniform random phase (default: a CPU generator
     seeded 0, so the phase is the same on every device) unless
     ``init_phase`` (radians, the magnitude's shape) is given. A batched
-    (N, bins, frames) input runs clip by clip, as the JAX ``lax.map`` does.
-    Returns (..., samples), ``hop_length * (n_frames - 1)`` long unless
-    ``length`` is given, on ``device``. While ``torch.export`` traces,
-    ``n_iter`` may be a 0-d int64 host tensor, a program input
-    (``_iterate``).
+    (..., bins, frames) input runs clip by clip, as the JAX ``lax.map``
+    does. ``use_pallas_glue`` and ``transform``: None decides by shape
+    (``resolve_pallas_glue``, ``resolve_transform``); True on a shape the
+    glue kernels do not take raises. Returns (..., samples),
+    ``hop_length * (n_frames - 1)`` long unless ``length`` is given, on
+    ``device``. While ``torch.export`` traces, ``n_iter`` may be a 0-d
+    int64 host tensor, a program input (``_iterate``).
     """
-    transform = transform or "fft"
-    if transform not in ("fft", "dft"):
-        raise ValueError(f"transform must be 'fft' or 'dft', got {transform!r}")
     dev = resolve_device(device)
     magnitude = _as_tensor(magnitude, dev)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    if magnitude.ndim == 3:
-        phases = [None] * magnitude.shape[0] if init_phase is None else init_phase
-        return torch.stack([
-            griffinlim(m, generator, n_iter, hop_length, win_length, momentum,
-                       length, p, use_pallas_glue, transform, dev)
-            for m, p in zip(magnitude, phases)])
     n_fft = 2 * (magnitude.shape[-2] - 1)
     if win_length is None:
         win_length = n_fft
+    transform = transform or resolve_transform(magnitude.ndim, n_fft, win_length, length)
+    if transform not in ("fft", "dft"):
+        raise ValueError(f"transform must be 'fft' or 'dft', got {transform!r}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if magnitude.ndim > 2:
+        lead, clips = magnitude.shape[:-2], magnitude.reshape(-1, *magnitude.shape[-2:])
+        phases = ([None] * clips.shape[0] if init_phase is None
+                  else _as_tensor(init_phase, dev).reshape(clips.shape))
+        out = torch.stack([
+            griffinlim(m, generator, n_iter, hop_length, win_length, momentum,
+                       length, p, use_pallas_glue, transform, dev)
+            for m, p in zip(clips, phases)])
+        return out.reshape(*lead, out.shape[-1])
+    if transform == "dft":
+        _check_dft_shapes(magnitude, win_length, n_fft, length)
+    use_pallas_glue = _takes_glue(magnitude, hop_length, win_length, length, use_pallas_glue)
     if init_phase is None:
         init_phase = 2.0 * np.pi * torch.rand(
             magnitude.shape, generator=generator, device=generator.device)
@@ -89,7 +136,6 @@ def griffinlim(
         # real end to end (no complex tensor but the FFTs' own): the form a
         # compiler takes whole (AOTInductor on the card computes complex
         # elementwise products and their fills wrongly)
-        _check_glue_shapes(magnitude, win_length, n_fft, length)
         phase_t = init_phase.transpose(-1, -2)
         ang = torch.stack([torch.cos(phase_t), torch.sin(phase_t)], dim=-1)
         mag_t = magnitude.transpose(-1, -2).contiguous().unsqueeze(-1)
@@ -104,29 +150,31 @@ def griffinlim(
     return _stft.istft(magnitude * angles, hop_length, win_length, length=length)
 
 
-def _check_glue_shapes(magnitude, win_length: int, n_fft: int, length) -> None:
-    """The glue loops take one (bins, frames) clip framed at n_fft."""
+def _check_dft_shapes(magnitude, win_length: int, n_fft: int, length) -> None:
+    """The dft loop takes one (bins, frames) clip framed at n_fft."""
     if win_length != n_fft or length is not None or magnitude.ndim != 2:
-        raise ValueError("the glue loop (use_pallas_glue=True, or transform='dft') needs one "
-                         "(bins, frames) clip, win_length == n_fft and length=None; the "
-                         "fft loop with use_pallas_glue=False takes the others")
+        raise ValueError("transform='dft' needs one (bins, frames) clip, win_length == n_fft "
+                         "and length=None; the fft loop takes the others")
 
 
 def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
-             momentum: float = 0.99, use_pallas_glue: bool = True,
+             momentum: float = 0.99, use_pallas_glue: bool | None = None,
              length: int | None = None, transform: str = "fft"):
     """Run ``n_iter`` Griffin-Lim iterations on an explicit carry.
 
     ``carry`` is ``(angles, rebuilt_prev)``, both complex (bins, frames);
-    returns the updated carry.
+    returns the updated carry. ``use_pallas_glue`` as ``griffinlim``'s.
     """
     n_fft = 2 * (magnitude.shape[-2] - 1)
     mom = momentum / (1.0 + momentum)
     angles, rebuilt = carry
 
     if transform == "dft":
-        _check_glue_shapes(magnitude, win_length, n_fft, length)
-        return _gl_steps_dft(magnitude, carry, n_iter, hop_length, mom, use_pallas_glue)
+        _check_dft_shapes(magnitude, win_length, n_fft, length)
+        return _gl_steps_dft(magnitude, carry, n_iter, hop_length, mom,
+                             _takes_glue(magnitude, hop_length, win_length, length,
+                                         use_pallas_glue))
+    use_pallas_glue = _takes_glue(magnitude, hop_length, win_length, length, use_pallas_glue)
 
     if not use_pallas_glue:
         for _ in range(n_iter):
@@ -138,7 +186,6 @@ def gl_steps(magnitude, carry, n_iter: int, hop_length: int, win_length: int,
             rebuilt = rebuilt_new
         return angles, rebuilt
 
-    _check_glue_shapes(magnitude, win_length, n_fft, length)
     mag_t = magnitude.transpose(-1, -2).contiguous().unsqueeze(-1)
     ang, reb = _gl_steps_real(mag_t, torch.view_as_real(angles.transpose(-1, -2).contiguous()),
                               torch.view_as_real(rebuilt.transpose(-1, -2).contiguous()),
@@ -259,13 +306,13 @@ def griffinlim_from_log_power(
     hop_length: int = 256,
     clip_max: float = 20.0,
     length: int | None = None,
-    use_pallas_glue: bool = True,
+    use_pallas_glue: bool | None = None,
     device: str | torch.device | None = "cuda",
     init_phase=None,
 ) -> torch.Tensor:
-    """Full synthesis: (bins, frames) log-power spec -> waveform
+    """Full synthesis: (..., bins, frames) log-power spec -> waveform
     (inference.py:109-110: compression inverse, then Griffin-Lim);
-    ``init_phase`` as ``griffinlim``'s."""
+    ``use_pallas_glue`` and ``init_phase`` as ``griffinlim``'s."""
     dev = resolve_device(device)
     magnitude = _stft.inverse_log_power(_as_tensor(spec, dev), clip_max)
     return griffinlim(magnitude, generator=generator, n_iter=n_iter,

@@ -22,6 +22,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import reference as npref
 
@@ -116,6 +117,20 @@ def reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([left, y, right], dim=-1)
 
 
+def pad_edges(y: torch.Tensor, pad: int, mode: str = "reflect") -> torch.Tensor:
+    """``np.pad`` of the last axis by ``pad`` on both sides in the modes the
+    JAX package's ``stft`` is called with: "reflect", "constant" (zeros)
+    and "edge" (``F.pad``'s "replicate")."""
+    if mode == "reflect":
+        return reflect_pad(y, pad)
+    if mode == "constant":
+        return F.pad(y, (pad, pad))
+    if mode == "edge":  # replicate pads (N, C, W): one channel per row
+        flat = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="replicate")
+        return flat.reshape(*y.shape[:-1], flat.shape[-1])
+    raise ValueError(f"pad_mode must be 'reflect', 'constant' or 'edge', got {mode!r}")
+
+
 def frame_dense(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
     """Frame (..., samples) -> (..., n_frames, n_fft) via reshape+shift:
     frame i is the concatenation of hop-blocks i .. i + n_fft/hop - 1."""
@@ -167,14 +182,16 @@ def stft(
     hop_length: int = 256,
     win_length: int | None = None,
     center: bool = True,
+    pad_mode: str = "reflect",
 ) -> torch.Tensor:
     """Complex STFT of (..., samples) -> (..., 1 + n_fft//2, n_frames);
-    ``center`` reflect-pads by n_fft//2 on both sides."""
+    ``center`` pads by n_fft//2 on both sides in ``pad_mode``
+    (``pad_edges``)."""
     if win_length is None:
         win_length = n_fft
     window = window_tensor(n_fft, win_length, y.device)
     if center:
-        y = reflect_pad(y, n_fft // 2)
+        y = pad_edges(y, n_fft // 2, pad_mode)
     n_frames = 1 + (y.shape[-1] - n_fft) // hop_length
     frames = _frames(y, n_fft, hop_length, n_frames)
     return torch.fft.rfft(frames * window, dim=-1).transpose(-1, -2)

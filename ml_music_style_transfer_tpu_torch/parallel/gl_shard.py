@@ -2,7 +2,8 @@
 of a mesh axis, the port of the JAX package's ``parallel/gl_shard.py``.
 
   - every rank runs Griffin-Lim (``ops/griffinlim.gl_steps``, so the K3
-    glue kernels launch once per iteration on each rank) over its own
+    glue kernels launch once per iteration on each rank where they take
+    the extended slice's shape) over its own
     frames plus ``halo`` frames of context on each side, sliced from the
     whole spectrogram that every rank holds (zeros past the clip's edges:
     silent, so inert);
@@ -31,7 +32,6 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops import griffinlim as tgl
 from ..ops import stft as _stft
-from ..ops.kernels import gl_glue
 from . import comm
 from . import mesh as pmesh
 
@@ -127,13 +127,9 @@ def sharded_griffinlim_from_log_power(
                                                   group)
         return torch.cat([from_left, interior, from_right], dim=1)
 
-    # the glue kernels where they take the shape (the JAX rule), else the
-    # istft -> stft iteration
-    glue = gl_glue.supported(magnitude.shape[-1], n_fft, hop_length)
     carry = (angles, torch.zeros_like(angles))
     for i, n_block in enumerate(blocks):
-        carry = tgl.gl_steps(magnitude, carry, n_block, hop_length, n_fft,
-                             use_pallas_glue=glue)
+        carry = tgl.gl_steps(magnitude, carry, n_block, hop_length, n_fft)
         if i < len(blocks) - 1:
             carry = (refresh(carry[0]), refresh(carry[1]))
     wav_ext = _stft.istft(magnitude * carry[0], hop_length, n_fft)

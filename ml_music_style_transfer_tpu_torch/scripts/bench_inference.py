@@ -2,7 +2,8 @@
 
     python -m ml_music_style_transfer_tpu_torch.scripts.bench_inference \\
         [--width-mult 1.0] [--n-iter 300] [--seconds 30] [--daemon-requests 6] \\
-        [--device cuda]
+        [--skip-whole-clip] [--probe-cap-seconds 960] [--out-dir .] \\
+        [--profile-dir DIR] [--device cuda]
 
 The port's counterpart of the JAX package's ``scripts/bench_inference.py``.
 A PerformanceNet with seeded random weights (full width by default,
@@ -12,15 +13,31 @@ after one warm-up of each path, and the script prints one ``metric`` line
 per number, under the names ``chip_smoke.py`` prints them:
 
   - ``serving_s_per_30s_clip``: ``AudioSynthesizer.synthesize_waveform``
-    of a 30 s MIDI with a 30 s timbre clip, warm (best of 3);
+    of a ``--seconds`` MIDI with a timbre clip as long, warm (best of 3);
   - ``griffinlim_s_per_10s_clip``: Griffin-Lim (``n_iter`` iterations) of a
     10 s clip's spectrogram, 1720 frames (best of 3);
-  - ``whole_clip_s_per_30s_clip``: ``synthesize_whole_clip``, warm (best of 3);
+  - ``whole_clip_s_per_30s_clip``: ``synthesize_whole_clip``, warm (best of
+    3), unless ``--skip-whole-clip``;
   - ``daemon_requests_per_s_pipelined`` / ``_serial``: ``serve_loop`` over
     ``--daemon-requests`` requests of 10 s at pipeline depth 2 and 0, and
-    their ratio;
+    their ratio (0 requests skips them);
   - ``batch_griffinlim_s_per_clip``: ``bulk_griffinlim`` of four 10 s
     spectrograms over four.
+
+The whole-clip section (the reference's own inference, one forward with
+InstanceNorm statistics over the whole clip, model/inference.py:82-84)
+also reports, as the JAX script does: the divergence between the tiled
+spectrogram (``_predict_device``) and the whole-clip one
+(``predict_spectrogram_whole_clip``) on the same inputs (relative L2, over
+the interior past an 860-frame margin, mean |difference| and the
+spectrogram's mean level); and, doubling from 60 s up to
+``--probe-cap-seconds`` (0 skips it), the longest clip one device serves
+in one pass (``synthesize_whole_clip`` with 30 iterations; only
+``torch.cuda.OutOfMemoryError`` ends the probe, any other error
+propagates). It writes them to ``--out-dir``/``SERVING_WHOLECLIP_H100.json``
+(``_CPU`` on the CPU; ``_W{w}`` after it at another width), with the card's
+name and power limit inside. ``--profile-dir`` writes a trace of one
+steady ``synthesize_waveform`` there (``utils/profiling.device_trace``).
 
 Each time is on the host clock around work that ends in a device sync (a
 waveform on the host). Before the metrics it prints the card's name and
@@ -49,9 +66,13 @@ from ..midi import writer as midi_writer
 from ..models import PerformanceNet
 from ..ops import griffinlim as tgl
 from ..testing import synthetic
+from ..utils import profiling
 from . import serve
 
 GL_FRAMES_10S = 1720  # a 10 s clip's frames rounded up to half a chunk
+PROBE_START_SECONDS = 60.0  # the first clip of the one-pass probe, doubled after
+PROBE_N_ITER = 30  # Griffin-Lim iterations of each probe clip: the memory is the forward's
+MARGIN_FRAMES = 860  # the interior of the divergence starts a chunk in from each edge
 DAEMON_SECONDS = 10.0  # MIDI length of each daemon request
 SPIN_CYCLES = 2_000_000_000  # torch.cuda._sleep: about 1 s at the H100's boost clock
 
@@ -190,6 +211,94 @@ def launch_queue_probe(device: torch.device) -> int | None:
     return blocked_at
 
 
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)), 1e-9)
+
+
+def divergence(synth) -> dict:
+    """The tiled serving spectrogram against the whole-clip one on the
+    synthesizer's inputs (the JAX script's measure): relative L2, the same over the
+    interior (an 860-frame margin, a quarter of the clip where it is
+    shorter than three chunks), mean |difference| and the whole-clip
+    spectrogram's mean level."""
+    spec_dev, t_tiled = synth._predict_device(synth.midi_source, synth.audio_source)
+    tiled = S._fetch(spec_dev.float())[:t_tiled]
+    roll, onoff, cond, t_total = synth.process_whole_clip(synth.midi_source, synth.audio_source)
+    with torch.inference_mode():
+        whole = np.asarray(synth.predict_spectrogram_whole_clip(roll, onoff, cond, t_total),
+                           np.float32)
+    t = min(tiled.shape[0], whole.shape[0])
+    a, b = tiled[:t], whole[:t]
+    margin = MARGIN_FRAMES if t > 3 * MARGIN_FRAMES else t // 4
+    return {"t_frames_compared": int(t), "interior_margin_frames": int(margin),
+            "rel_l2": rel_l2(a, b),
+            "interior_rel_l2": rel_l2(a[margin:t - margin], b[margin:t - margin]),
+            "mean_abs": float(np.mean(np.abs(a - b))),
+            "spec_mean_abs_level": float(np.mean(np.abs(b))),
+            "params": "random-init"}
+
+
+def longest_one_pass(make_synth, root: str, cap_s: float) -> dict:
+    """Clips of 60, 120, 240, ... s up to ``cap_s``, each served whole
+    (``synthesize_whole_clip``, 30 iterations), until one does not fit the
+    device: only ``torch.cuda.OutOfMemoryError`` ends the probe (the cache
+    is freed after it); any other exception propagates."""
+    ok_s, fail_s, fail_err, seconds = 0.0, None, "", {}
+    dur = PROBE_START_SECONDS
+    while dur <= cap_s:
+        midi, wav = make_clip(root, f"probe_{int(dur)}", dur, 1, timbre_seconds=min(dur, 30.0))
+        synth = make_synth(midi, wav)
+        t = time.perf_counter()
+        try:
+            out = synth.synthesize_whole_clip(n_iter=PROBE_N_ITER)
+        except torch.cuda.OutOfMemoryError as e:
+            fail_s, fail_err = dur, f"{type(e).__name__}: {e}"[:300]
+            print(f"[whole-clip probe] {dur:.0f} s clip out of memory", flush=True)
+            del synth
+            torch.cuda.empty_cache()
+            break
+        if not np.isfinite(out).all():
+            raise RuntimeError(f"the {dur:.0f} s whole clip is not finite")
+        seconds[f"{dur:g}"] = time.perf_counter() - t
+        print(f"[whole-clip probe] {dur:.0f} s clip OK ({seconds[f'{dur:g}']:.2f} s)",
+              flush=True)
+        ok_s = dur
+        del synth, out
+        dur *= 2
+    return {"longest_ok_s": ok_s, "first_fail_s": fail_s, "fail_error": fail_err,
+            "cap_s": cap_s, "n_iter": PROBE_N_ITER, "seconds": seconds}
+
+
+def whole_clip_section(args, synth, make_synth, root: str, dev: torch.device, tiled_s: float,
+                       report) -> dict:
+    """The JAX script's whole-clip section: time, divergence, probe; the
+    dict it writes to ``SERVING_WHOLECLIP_*.json`` under ``--out-dir``."""
+    n_iter = args.n_iter
+    synth.synthesize_whole_clip(n_iter=n_iter)  # warm-up
+    steady = best_seconds(lambda: synth.synthesize_whole_clip(n_iter=n_iter), dev)
+    report("whole_clip_s_per_30s_clip", steady, "s", midi_s=args.seconds, n_iter=n_iter)
+    wc = {"seconds": args.seconds, "width_mult": args.width_mult, "n_iter": n_iter,
+          "device": smi_line() if dev.type == "cuda" else "cpu",
+          "steady_s": steady, "tiled_steady_s": tiled_s,
+          "wholeclip_over_tiled": steady / tiled_s,
+          "divergence": divergence(synth)}
+    d = wc["divergence"]
+    print(f"[whole-clip] tiled vs whole divergence: rel_l2={d['rel_l2']:.4f} interior="
+          f"{d['interior_rel_l2']:.4f} mean_abs={d['mean_abs']:.4f} (spec level "
+          f"{d['spec_mean_abs_level']:.4f})", flush=True)
+    if args.probe_cap_seconds > 0:
+        wc["max_onepass_probe"] = probe = longest_one_pass(make_synth, root,
+                                                           args.probe_cap_seconds)
+        print(f"[whole-clip probe] longest_ok_s={probe['longest_ok_s']:g} "
+              f"first_fail_s={probe['first_fail_s']}", flush=True)
+    suffix = "" if args.width_mult == 1.0 else "_W" + f"{args.width_mult:g}".replace(".", "p")
+    name = f"SERVING_WHOLECLIP_{'H100' if dev.type == 'cuda' else 'CPU'}{suffix}.json"
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, name), "w") as f:
+        json.dump(wc, f, indent=1)
+    return wc
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -198,6 +307,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--daemon-requests", type=int, default=6)
     ap.add_argument("--seconds", type=float, default=30.0,
                     help="MIDI length of the serving and whole-clip requests")
+    ap.add_argument("--skip-whole-clip", action="store_true",
+                    help="skip the whole-clip one-pass section")
+    ap.add_argument("--probe-cap-seconds", type=float, default=960.0,
+                    help="longest clip the one-pass probe tries (doubling from 60 s; 0 skips it)")
+    ap.add_argument("--out-dir", default=".",
+                    help="where the whole-clip section writes SERVING_WHOLECLIP_*.json")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a trace of one steady synthesize_waveform here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu (checks the script)")
     args = ap.parse_args(argv)
@@ -237,23 +354,30 @@ def main(argv=None) -> dict:
         report("griffinlim_s_per_10s_clip", best_seconds(gl, dev), "s",
                frames=GL_FRAMES_10S, n_iter=n_iter)
 
-        synth.synthesize_whole_clip(n_iter=n_iter)
-        report("whole_clip_s_per_30s_clip",
-               best_seconds(lambda: synth.synthesize_whole_clip(n_iter=n_iter), dev), "s",
-               midi_s=args.seconds, n_iter=n_iter)
+        if not args.skip_whole_clip:
+            wc = whole_clip_section(args, synth, make_synth, root, dev,
+                                    metrics["serving_s_per_30s_clip"], report)
+            print("[whole-clip] " + json.dumps(wc), flush=True)
+
+        if args.profile_dir:
+            with profiling.device_trace(args.profile_dir):
+                synth.synthesize_waveform(n_iter=n_iter)
+            print(f"[profile] trace of one steady synthesize_waveform written to "
+                  f"{args.profile_dir}", flush=True)
 
         k = args.daemon_requests
-        clips = [make_clip(root, f"d{i}", DAEMON_SECONDS, 10 + i) for i in range(k)]
-        reqs = [{"midi": m, "audio": w, "out": os.path.join(root, f"out{i}.wav"),
-                 "n_iter": n_iter} for i, (m, w) in enumerate(clips)]
-        daemon_seconds(make_synth, reqs, 2)  # warm-up
-        serial, resp_s = daemon_seconds(make_synth, reqs, 0)
-        piped, resp_p = daemon_seconds(make_synth, reqs, 2)
-        if not all(r["ok"] for r in resp_s + resp_p):
-            raise RuntimeError(f"daemon request failed: {resp_s + resp_p}")
-        report("daemon_requests_per_s_serial", k / serial, "requests/s", requests=k)
-        report("daemon_requests_per_s_pipelined", k / piped, "requests/s", requests=k,
-               pipelined_over_serial=round(serial / piped, 4))
+        if k > 0:
+            clips = [make_clip(root, f"d{i}", DAEMON_SECONDS, 10 + i) for i in range(k)]
+            reqs = [{"midi": m, "audio": w, "out": os.path.join(root, f"out{i}.wav"),
+                     "n_iter": n_iter} for i, (m, w) in enumerate(clips)]
+            daemon_seconds(make_synth, reqs, 2)  # warm-up
+            serial, resp_s = daemon_seconds(make_synth, reqs, 0)
+            piped, resp_p = daemon_seconds(make_synth, reqs, 2)
+            if not all(r["ok"] for r in resp_s + resp_p):
+                raise RuntimeError(f"daemon request failed: {resp_s + resp_p}")
+            report("daemon_requests_per_s_serial", k / serial, "requests/s", requests=k)
+            report("daemon_requests_per_s_pipelined", k / piped, "requests/s", requests=k,
+                   pipelined_over_serial=round(serial / piped, 4))
 
         specs = torch.rand((4, 1025, GL_FRAMES_10S), generator=torch.Generator().manual_seed(2))
         specs = (specs * 8).to(dev)

@@ -4,7 +4,7 @@ the port's counterpart of the JAX package's
 
     python -m ml_music_style_transfer_tpu_torch.scripts.export_torch_checkpoint \\
         -exp-name NAME [--exp-root ./experiments] [--epoch N] [--use-ema] [--out PATH] \\
-        [--device cuda|cpu]
+        [--width-mult 1.0] [--device cuda|cpu]
 
 The epoch is hyperparams.json's ``best_epoch`` (the reference's own
 contract, model/inference.py:22-29) unless ``--epoch`` names one. The
@@ -15,6 +15,13 @@ exports its EMA weights. The output, ``{exp_dir}/checkpoint-{epoch}.tar`` by def
 ``{"epoch", "state_dict", "optimizer": None}`` with float32 tensors under
 the reference's keys (``compat/weights.save_reference_checkpoint``). Only
 full-width (``width_mult=1.0``) weights fit the reference's strict load.
+``--width-mult`` is the experiment's width: the weights are taken under the
+keys of a ``PerformanceNet`` of that width, as the JAX script's restore
+template takes a ``.msgpack`` (flax checks the template's keys, not their
+shapes): a key the model has and the checkpoint lacks raises, naming it,
+and keys the model lacks are left out. A ``.pt`` or ``.dcp`` is taken the
+same way; an ``.orbax`` is exported as it is, as the JAX script restores it
+without a template.
 A ``.msgpack``'s weights are translated from the JAX layout on
 ``--device`` (the card by default, as at every entry point of the port;
 ``--device cpu`` where there is none); the file is written from the CPU.
@@ -25,9 +32,24 @@ import argparse
 import os
 
 from ..compat.weights import save_reference_checkpoint
+from ..config import ModelConfig
 from ..device import resolve_device
 from ..infer.synthesize import load_checkpoint_params
+from ..models import PerformanceNet
 from ..train import checkpoint as ckpt
+
+
+def fit_template(params: dict, width_mult: float) -> dict:
+    """``params`` under the keys of a PerformanceNet of ``width_mult``, in
+    its order: a key the model has and ``params`` lacks raises ValueError
+    naming the first; keys the model lacks are dropped (flax's restore
+    into a template)."""
+    template = PerformanceNet(ModelConfig(width_mult=width_mult), device="meta").state_dict()
+    missing = [k for k in template if k not in params]
+    if missing:
+        raise ValueError(f"the checkpoint has no {missing[0]!r}, which a PerformanceNet of "
+                         f"width_mult {width_mult:g} has ({len(missing)} such keys)")
+    return {k: params[k] for k in template}
 
 
 def main(argv=None) -> str:
@@ -41,6 +63,8 @@ def main(argv=None) -> str:
                     help="export the EMA weights (the ema_params tree)")
     ap.add_argument("--out", default=None,
                     help="output path (default: {exp_dir}/checkpoint-{epoch}.tar)")
+    ap.add_argument("--width-mult", type=float, default=1.0,
+                    help="the experiment's width (the keys a .msgpack, .pt or .dcp must hold)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -58,6 +82,8 @@ def main(argv=None) -> str:
                                     f"in {exp_dir}")
         path = found[0]
     params = load_checkpoint_params(path, use_ema=args.use_ema, device=device)
+    if not path.endswith(".orbax"):
+        params = fit_template(params, args.width_mult)
     out = args.out or os.path.join(exp_dir, f"checkpoint-{epoch}.tar")
     save_reference_checkpoint(out, params, epoch=epoch)
     print(f"wrote {out} (epoch {epoch}{', EMA weights' if args.use_ema else ''})")

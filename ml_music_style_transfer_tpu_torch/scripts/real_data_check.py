@@ -4,8 +4,10 @@ counterpart of the root ``scripts/real_data_check.py``.
 Point it at a MusicNet-style directory (``{id}*mixcraft.mid`` beside
 ``{id}_..._{style}.wav``, the reference's naming contract) and it
 
-  1. preprocesses the directory end to end (``data/preprocess.get_arrays``:
-     the CLI's pipeline into memory, no h5py needed),
+  1. preprocesses the directory end to end: into memory
+     (``data/preprocess.get_arrays``, no h5py needed), or with ``--workdir
+     DIR`` into ``DIR/ds_train.hdf5`` (``get_data``, needs h5py), read back
+     through ``ChunkDataset``; the directory is kept,
   2. checks the chunk-alignment and shape contracts,
   3. takes ``--steps`` train steps and requires the loss to descend,
   4. synthesizes one chunk (forward + Griffin-Lim) and reports the
@@ -15,18 +17,20 @@ then prints a JSON report (and writes it to ``--out`` where given); it
 exits 1 where a check that ran did not pass.
 MusicNet is not shipped with this repository: ``--synthetic`` writes a
 seeded directory of that shape with ``testing/synthetic.make_dataset_dir``
-and checks that; with neither a directory nor ``--synthetic`` it reports
-``"skipped": true`` and exits 0.
+(under ``--workdir`` where given) and checks that; with neither a
+directory nor ``--synthetic`` it reports ``"skipped": true`` and exits 0.
 
     python -m ml_music_style_transfer_tpu_torch.scripts.real_data_check \
         --data-dir /path/to/musicnet_styles [--width-mult 0.25] [--steps 60] \
-        [--batch-size 4] [--n-iter 100] [--device cuda|cpu]
+        [--batch-size 4] [--n-iter 100] [--workdir DIR] [--device cuda|cpu]
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -64,6 +68,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--n-iter", type=int, default=100, help="Griffin-Lim iterations")
     ap.add_argument("--max-chunks-per-song", type=int, default=100)
+    ap.add_argument("--workdir", default=None,
+                    help="preprocess into DIR/ds_train.hdf5 (needs h5py) and keep it; "
+                         "default: in memory")
     ap.add_argument("--out", default=None, help="also write the JSON report here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -71,7 +78,11 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     hp = DEFAULT_DSP
 
-    with tempfile.TemporaryDirectory(prefix="mmst_real_data_") as work:
+    if args.workdir and importlib.util.find_spec("h5py") is None:
+        raise ImportError("--workdir writes the dataset as HDF5 and needs h5py; without "
+                          "--workdir the check preprocesses into memory")
+    work = args.workdir or tempfile.mkdtemp(prefix="mmst_real_data_")
+    try:
         data_dir = args.data_dir
         if args.synthetic:
             data_dir = synthetic.make_dataset_dir(os.path.join(work, "songs"), song_ids=[1, 2],
@@ -90,12 +101,23 @@ def main(argv=None) -> dict:
 
         # 1) preprocess (the reference's pipeline, preprocess.py:163-232)
         t0 = time.perf_counter()
-        raw = pp.get_arrays(data_dir, "train", song_ids=song_ids, styles=styles,
-                            max_chunks=args.max_chunks_per_song, device=dev)
-        t_pre = time.perf_counter() - t0
+        if args.workdir:
+            dataset = pp.get_data(data_dir, os.path.join(work, "ds"), "train",
+                                  song_ids=song_ids, styles=styles,
+                                  max_chunks=args.max_chunks_per_song, device=dev)
+            t_pre = time.perf_counter() - t0
+            ds = ChunkDataset(dataset, seed=SEED)
+        else:
+            raw = pp.get_arrays(data_dir, "train", song_ids=song_ids, styles=styles,
+                                max_chunks=args.max_chunks_per_song, device=dev)
+            t_pre = time.perf_counter() - t0
+            dataset = None
+            ds = ChunkDataset.from_arrays(raw, seed=SEED, source=data_dir)
+    finally:
+        if not args.workdir:
+            shutil.rmtree(work, ignore_errors=True)
 
     # 2) alignment and shape contracts
-    ds = ChunkDataset.from_arrays(raw, seed=SEED, source=data_dir)
     if ds.n_data == 0:
         raise ValueError("preprocessing produced zero chunks")
     roll_shape = (hp.windows_per_chunk, 128)
@@ -145,6 +167,7 @@ def main(argv=None) -> dict:
     return _finish({
         "skipped": False,
         "data_dir": "synthetic" if args.synthetic else os.path.abspath(data_dir),
+        "dataset": os.path.abspath(dataset) if dataset else "memory",
         "songs": song_ids,
         "styles": styles,
         "n_chunks": int(ds.n_data),

@@ -166,9 +166,14 @@ class TestGriffinLim:
         np.testing.assert_allclose(out[0].numpy(), first.numpy(), atol=1e-6)
 
     def test_glue_path_refuses_unsupported_options(self):
+        """A ``length`` is an input the glue does not take: the default
+        answers it on the istft -> stft loop (as the JAX package does), an
+        explicit ``use_pallas_glue=True`` raises."""
         mag = self._magnitude(30000)
         length = HOP * (mag.shape[1] - 1) + 100  # keeps the frame count
-        with pytest.raises(ValueError, match="use_pallas_glue"):
-            tgl.griffinlim(mag, n_iter=1, length=length, device="cpu")
-        out = tgl.griffinlim(mag, n_iter=1, length=length, use_pallas_glue=False, device="cpu")
+        with pytest.raises(ValueError, match="use_pallas_glue=True"):
+            tgl.griffinlim(mag, n_iter=1, length=length, use_pallas_glue=True, device="cpu")
+        out = tgl.griffinlim(mag, n_iter=1, length=length, device="cpu")
+        plain = tgl.griffinlim(mag, n_iter=1, length=length, use_pallas_glue=False, device="cpu")
         assert out.shape == (length,)
+        assert torch.equal(out, plain)

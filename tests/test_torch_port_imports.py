@@ -54,7 +54,8 @@ def test_scan_covers_the_package_and_the_smoke_script():
                 "train/flax_msgpack.py", "models/autoencoder.py", "utils/profiling.py",
                 "compat/program_export.py", "scripts/export_program.py",
                 "scripts/export_torch_checkpoint.py", "scripts/soak_daemon.py",
-                "testing/plot_spec.py"):
+                "testing/plot_spec.py", "scripts/bench_preprocess.py", "scripts/bench_dft_gl.py",
+                "scripts/bench_gl_kernels.py", "scripts/real_data_check.py"):
         assert f"{PKG}/{new}" in rel
 
 
@@ -76,7 +77,9 @@ def test_rule_catches_the_jax_package_but_not_the_port():
     f"{PKG}.data.musicnet", f"{PKG}.ops.pianoroll", f"{PKG}.testing.quality",
     PKG, f"{PKG}.utils.profiling", f"{PKG}.compat.program_export",
     f"{PKG}.scripts.export_program", f"{PKG}.scripts.export_torch_checkpoint",
-    f"{PKG}.scripts.soak_daemon", f"{PKG}.testing.plot_spec"])
+    f"{PKG}.scripts.soak_daemon", f"{PKG}.testing.plot_spec", f"{PKG}.scripts.bench_preprocess",
+    f"{PKG}.scripts.bench_dft_gl", f"{PKG}.scripts.bench_gl_kernels",
+    f"{PKG}.scripts.real_data_check"])
 def test_modules_import_without_nvcc_or_a_card(module):
     """Importing builds nothing: kernels compile at their first launch."""
     importlib.import_module(module)

@@ -537,10 +537,13 @@ class TestDeviceContract:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_inference.main([])
 
-    def test_bench_inference_runs_on_the_cpu_when_asked(self, capsys):
+    def test_bench_inference_runs_on_the_cpu_when_asked(self, capsys, tmp_path):
+        # the one-pass probe (up to 960 s of audio by default) is held in
+        # test_torch_port_bench_scripts.py at a 60 s cap
         metrics = bench_inference.main(
             ["--width-mult", str(1 / 16), "--n-iter", "1", "--daemon-requests", "2",
-             "--seconds", "4", "--device", "cpu"])
+             "--seconds", "4", "--device", "cpu", "--probe-cap-seconds", "0",
+             "--out-dir", str(tmp_path)])
         assert set(metrics) == {
             "serving_s_per_30s_clip", "griffinlim_s_per_10s_clip", "whole_clip_s_per_30s_clip",
             "daemon_requests_per_s_serial", "daemon_requests_per_s_pipelined",

@@ -290,6 +290,63 @@ class TestExportTorchCheckpoint:
         with pytest.raises(ValueError, match="ema_params"):
             export_torch_checkpoint.main(root + ["--epoch", "4", "--use-ema"])
 
+    @staticmethod
+    def _jax_script():
+        """The JAX package's ``scripts/export_torch_checkpoint.py`` as a module."""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "jax_export_torch_checkpoint",
+            os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                         "export_torch_checkpoint.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    @staticmethod
+    def _experiment(root, name: str):
+        exp = root / "experiments" / name
+        exp.mkdir(parents=True)
+        (exp / "hyperparams.json").write_text(json.dumps(
+            {"train_epoch": 1, "test_freq": 1, "exp_name": name, "best_epoch": 1}))
+        return exp
+
+    def test_width_mult_as_the_jax_script(self, tmp_path, flax_params):
+        """``--width-mult`` against the JAX script on the same files. A width
+        1/16 ``.msgpack`` under ``--width-mult 0.125``: flax's template
+        checks keys, not shapes, so both export it, equal. The same file
+        without the last layer (``lastconv``): both refuse (the port names
+        the key). An
+        ``.orbax`` (the committed JAX-written fixture) under another width:
+        both export it, equal, without a template."""
+        jscript = self._jax_script()
+        params = weights.from_jax_params(flax_params)
+        cases = {"w": params, "headless": {k: v for k, v in params.items()
+                                           if not k.startswith("lastconv.")}}
+        assert len(cases["headless"]) == len(params) - 2
+        for name, state in cases.items():
+            exp = self._experiment(tmp_path, name)
+            ckpt.save_checkpoint(str(exp), 1, {"params": weights.to_jax_params(state),
+                                               "epoch": 1}, fmt="msgpack")
+        root = ["--exp-root", str(tmp_path / "experiments"), "--width-mult", "0.125"]
+        port = export_torch_checkpoint.main(["-exp-name", "w", "--device", "cpu", "--out",
+                                             str(tmp_path / "port.tar")] + root)
+        jscript.main(["-exp-name", "w", "--out", str(tmp_path / "jax.tar")] + root)
+        _assert_same_tar(port, tmp_path / "jax.tar")
+        with pytest.raises(ValueError, match="lastconv"):
+            jscript.main(["-exp-name", "headless"] + root)
+        with pytest.raises(ValueError, match="no 'lastconv.weight'.* width_mult 0.125"):
+            export_torch_checkpoint.main(["-exp-name", "headless", "--device", "cpu"] + root)
+
+        from ml_music_style_transfer_tpu.train import checkpoint as jckpt
+        exp = self._experiment(tmp_path, "orbax")
+        jckpt.save_checkpoint_sharded(str(exp), 1, {"params": flax_params, "epoch": 1}, wait=True)
+        root = ["-exp-name", "orbax", "--exp-root", str(tmp_path / "experiments"),
+                "--width-mult", "0.5"]
+        port = export_torch_checkpoint.main(root + ["--device", "cpu", "--out",
+                                                    str(tmp_path / "port_o.tar")])
+        jscript.main(root + ["--out", str(tmp_path / "jax_o.tar")])
+        _assert_same_tar(port, tmp_path / "jax_o.tar")
+
 
 class TestPlotSpec:
     def test_panels_equal_the_jax_references(self):
