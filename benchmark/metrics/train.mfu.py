@@ -1,0 +1,22 @@
+"""3 x the forward FLOPs of a step (forward, and backward at twice the
+forward) x the steps done, over their seconds at the bf16 peak, in %: the
+window up to the profiler's start, where the card was drained, so every
+step issued before it was done."""
+from benchmark import roofline
+from benchmark.metrics._common import mfu
+
+
+def read(run):
+    rec = run.records
+    if "steps" not in rec:
+        return None
+    cut = run.trace.t0 if run.trace is not None else rec["t0"] + rec["seconds"]
+    steps = sum(1 for t in rec["issued"] if t < cut)
+    if not steps:
+        return None
+    cfg = run.config
+    if "midi_channel_plan" in cfg:
+        fwd = roofline.performancenet_forward_flops(cfg, rec["batch"], cfg["chunk_frames"])
+    else:
+        fwd = roofline.autoencoder_forward_flops(cfg, rec["batch"], cfg["frames"])
+    return mfu(3 * fwd * steps, cut - rec["t0"])
