@@ -1,0 +1,7 @@
+"""Median over the traced first half's steps of the device ms of the span
+``train.backward``: ``loss.backward()`` and the gradients' all-reduce."""
+from benchmark.metrics._spans import phase_ms
+
+
+def read(run):
+    return phase_ms(run, "train.backward")

@@ -142,8 +142,9 @@ scipy and the standard library. Phases, each reported on its own lines:
      path's; device kernels per Griffin-Lim iteration (profiler) of the
      package and the live path;
   18. support code: ``device_trace`` of a warm request names both glue
-     kernels and its ``trace_annotation`` span; ``StepTimer`` within 5 %
-     of CUDA events on the full-width train step (batch 16); two steps
+     kernels and its ``profiling.span``; six full-width train steps (batch
+     16) under ``device_trace`` record their program spans, each
+     ``train.step``'s device time within 5 % of CUDA events around it; two steps
      under ``nan_debugging`` (no false positive, 10 + 10 dropout launches
      seen by the mode as ``mmst_torch::dropout_apply``, the slowdown); a
      NaN in a batch's conditioning raises ``FloatingPointError`` naming the
@@ -1960,13 +1961,16 @@ def aoti_phase(torch, glue, tstft, ref, state, tmp) -> int:
 
 # ---- phase 18: support code -----------------------------------------------------
 
-STEP_TIMER_TOL = 0.05
+SPAN_TOL = 0.05
+TRAIN_PHASES = ("train.forward", "train.loss", "train.backward", "train.optimizer")
 
 
 def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     """Phase 18: ``device_trace`` of a warm request names both glue kernels
-    and its ``trace_annotation`` span; ``StepTimer`` against CUDA events on
-    the full-width train step (batch 16, within 5 %); the step under
+    and its ``profiling.span``; six full-width train steps (batch 16) under
+    ``device_trace``: each records ``train.step`` and its four phases with
+    one step id, its device time within 5 % of CUDA events around the
+    call, and the trace names the spans; the step under
     ``nan_debugging`` (no false positive, 10 + 10 dropout launches seen by
     the mode as ``mmst_torch::dropout_apply``, its slowdown) and a NaN in a
     batch's conditioning raising ``FloatingPointError``; the phase-4 weights
@@ -1991,7 +1995,7 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     synth.synthesize_waveform(n_iter=N_ITER)
     trace_dir = os.path.join(tmp, "trace")
     with profiling.device_trace(trace_dir):
-        with profiling.trace_annotation("mmst.request"):
+        with profiling.span("mmst.request"):
             synth.synthesize_waveform(n_iter=N_ITER)
     gl += counted(glue, 2 * N_ITER, "traced request (a warm-up, then the traced one)")
     with open(os.path.join(trace_dir, "trace.json")) as f:
@@ -2015,26 +2019,52 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     tr.init_state(0)
     ds = ChunkDataset.from_arrays(host_arrays(16, seed=18), seed=0)
     batch = next(device_prefetch(ds.epoch_batches(16), cuda))
-    timer = profiling.StepTimer(device=cuda)
-    ev_ms = []
-    dk.reset_launches()
-    for _ in range(6):
-        with timer:
+
+    def steps(n):
+        """n steps, each timed by CUDA events around the call and by the
+        host clock from an idle card until its work has run."""
+        ev_ms, host_s = [], []
+        dk.reset_launches()
+        for _ in range(n):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
             a.record()
             tr.train_step(batch, tr.next_dropout_seed())
             b.record()
-        ev_ms.append(a.elapsed_time(b))
-    got = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
-    check(got == (60, 60), f"support: dropout launches {got} after 6 steps")
-    t_timer = timer.mean_step_time()
-    t_events = statistics.mean(ev_ms[1:]) / 1e3
-    print(f"support: StepTimer mean step {t_timer:.5f} s ({timer.frames_per_sec(16):.0f} frames/s) "
-          f"vs CUDA events {t_events:.5f} s over 5 warm steps: "
-          f"{100 * (t_timer / t_events - 1):+.2f} % (tolerance {100 * STEP_TIMER_TOL:.0f} %)")
-    check(abs(t_timer / t_events - 1) <= STEP_TIMER_TOL, "support: StepTimer disagrees with events")
-    plain_s = statistics.median(timer.times[1:])
-    launches = 6 * 20
+            torch.cuda.synchronize()
+            host_s.append(time.perf_counter() - t)
+            ev_ms.append(a.elapsed_time(b))
+        got = (dk.LAUNCHES["dropout_apply"], dk.LAUNCHES["dropout_grad"])
+        check(got == (10 * n, 10 * n), f"support: dropout launches {got} after {n} steps")
+        return ev_ms, host_s
+
+    _, host_s = steps(6)
+    plain_s = statistics.median(host_s[1:])
+    profiling.clear_spans()
+    step_dir = os.path.join(tmp, "step_trace")
+    with profiling.device_trace(step_dir):
+        ev_ms, _ = steps(6)
+    recs = profiling.spans()
+    step_recs = [r for r in recs if r.name == "train.step"]
+    check(len(step_recs) == 6 and all(r.device_s is not None for r in step_recs),
+          f"support: {len(step_recs)} train.step spans with device times in 6 traced steps")
+    for r in step_recs:
+        kids = sorted(c.name for c in recs if c.parent == r.id and c.step == r.step)
+        check(kids == sorted(TRAIN_PHASES), f"support: step {r.step}'s phases {kids}")
+    gaps = [r.device_s * 1e3 / ms - 1 for r, ms in zip(step_recs[1:], ev_ms[1:])]
+    phase_ms = {n: statistics.median(1e3 * c.device_s for c in recs if c.name == n)
+                for n in TRAIN_PHASES}
+    print(f"support: 6 traced steps: train.step device time against CUDA events around the call "
+          f"{[round(100 * g, 2) for g in gaps]} % (tolerance {100 * SPAN_TOL:.0f} %); phase "
+          f"medians {json.dumps({k: round(v, 3) for k, v in phase_ms.items()})} ms; allocator "
+          f"calls {[r.counters.get('allocator_calls') for r in step_recs]}")
+    check(all(abs(g) <= SPAN_TOL for g in gaps), "support: span device times disagree with events")
+    with open(os.path.join(step_dir, "trace.json")) as f:
+        named = {e.get("name") for e in json.load(f)["traceEvents"]}
+    check({"train.step", *TRAIN_PHASES} <= named, "support: the trace lacks the train spans")
+    profiling.clear_spans()
+    launches = 12 * 20
 
     debug_s = []
     for i in range(2):

@@ -44,6 +44,7 @@ from ..device import resolve_device
 from ..ops import stft as tstft
 from ..parallel import comm
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from .hdf5_store import load_dataset
 
 
@@ -145,7 +146,12 @@ class DeviceDataStore:
         """This rank's share of the global batch at the global index
         vectors (``draw_epoch_indices``/``eval_epoch_indices``):
         ``gather_batch`` of its rows, which a data-sharded store first
-        collects from the ranks that hold them."""
+        collects from the ranks that hold them. Traced, it is the span
+        ``train.input`` of the step that opens next."""
+        with profiling.span("train.input"):
+            return self._local_batch(idx, cond_idx, style, weight)
+
+    def _local_batch(self, idx, cond_idx, style, weight) -> Dict[str, torch.Tensor]:
         weight = None if weight is None else self._mine(weight)
         if self.store_sharding == "replicated":
             return gather_batch(self.audio, self.pianoroll, self.onoff, self._mine(idx),
@@ -169,14 +175,18 @@ class DeviceDataStore:
 
     def draw_epoch_indices(self, batch_size: int, shuffle: bool = True):
         """One epoch's index plan, drawn on the host: yields (idx, cond_idx,
-        style) device vectors per full batch."""
+        style) device vectors per full batch. Traced, each batch's draw and
+        uploads are the host span ``data.plan`` of the step that opens
+        next."""
         order = self.rng.permutation(self.n_data) if shuffle else np.arange(self.n_data)
         n_full = self.n_data // batch_size
         for k in range(n_full):
-            idx = order[k * batch_size:(k + 1) * batch_size]
-            cond_idx = self.rng.integers(0, self.n_data, batch_size)
-            style = self.rng.integers(0, len(self.styles), batch_size)
-            yield self.put_idx(idx), self.put_idx(cond_idx), self.put_idx(style)
+            with profiling.span("data.plan", device=False):
+                idx = order[k * batch_size:(k + 1) * batch_size]
+                cond_idx = self.rng.integers(0, self.n_data, batch_size)
+                style = self.rng.integers(0, len(self.styles), batch_size)
+                plan = self.put_idx(idx), self.put_idx(cond_idx), self.put_idx(style)
+            yield plan
 
     def eval_epoch_indices(self, batch_size: int):
         """Deterministic full-coverage plan for evaluation: every chunk once,

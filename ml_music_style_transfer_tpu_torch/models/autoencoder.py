@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import mel as tmel
+from ..utils import profiling
 from .layers import Conv1x3, ConvTranspose1dTorch, DownConv, instance_norm, leaky_relu
 
 
@@ -44,24 +45,25 @@ class SpectrogramAutoencoder(nn.Module):
     def __init__(self, cfg: AutoencoderConfig = AutoencoderConfig(), device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.cfg = cfg
-        w, dt = cfg.width, cfg.compute_dtype
-        self.down_0 = DownConv(cfg.n_bins, w, True, dt, device=device)
-        self.down_1 = DownConv(w, 2 * w, True, dt, device=device)
-        self.bottleneck = DownConv(2 * w, 4 * w, False, dt, device=device)
-        self.up_0 = ConvTranspose1dTorch(4 * w, 2 * w, 4, 2, 1, dt, device)
-        self.up_1 = ConvTranspose1dTorch(2 * w, w, 4, 2, 1, dt, device)
-        self.head = Conv1x3(w, cfg.n_bins, dt, device)
-        first = next(self.parameters())
-        if first.device.type == "meta":
-            return
-        gen = generator or torch.Generator(device=first.device).manual_seed(0)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith(".bias"):
-                    p.zero_()
-                else:
-                    nn.init.xavier_normal_(p, generator=gen)
+        with profiling.setup_span("setup.model"):
+            self.cfg = cfg
+            w, dt = cfg.width, cfg.compute_dtype
+            self.down_0 = DownConv(cfg.n_bins, w, True, dt, device=device)
+            self.down_1 = DownConv(w, 2 * w, True, dt, device=device)
+            self.bottleneck = DownConv(2 * w, 4 * w, False, dt, device=device)
+            self.up_0 = ConvTranspose1dTorch(4 * w, 2 * w, 4, 2, 1, dt, device)
+            self.up_1 = ConvTranspose1dTorch(2 * w, w, 4, 2, 1, dt, device)
+            self.head = Conv1x3(w, cfg.n_bins, dt, device)
+            first = next(self.parameters())
+            if first.device.type == "meta":
+                return
+            gen = generator or torch.Generator(device=first.device).manual_seed(0)
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    if name.endswith(".bias"):
+                        p.zero_()
+                    else:
+                        nn.init.xavier_normal_(p, generator=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.transpose(1, 2)
@@ -90,13 +92,18 @@ def make_autoencoder_train_step(model: SpectrogramAutoencoder, sr: int = 44100,
     projects the power onto ``model.cfg.n_bins`` mel bands (one matmul) and
     re-compresses with log1p; ``loss_fn`` is the multi-scale mel spectral
     distance between the reconstruction and the mel target at band
-    resolutions n_bins / k, k in ``band_scales``."""
+    resolutions n_bins / k, k in ``band_scales``. Traced, ``step`` is the
+    span ``train.step`` around ``train.input`` (``mel_encode``),
+    ``train.forward``, ``train.loss``, ``train.backward`` and
+    ``train.optimizer``, as ``Trainer.train_step``'s; building the
+    optimizer is part of the set-up span ``setup.model``."""
     from ..train import losses  # train/ imports the models: not at import time
 
     n_bins = model.cfg.n_bins
     params = list(model.parameters())
-    optimizer = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                                 fused=True if params[0].device.type == "cuda" else None)
+    with profiling.setup_span("setup.model"):
+        optimizer = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                     fused=True if params[0].device.type == "cuda" else None)
 
     @torch.no_grad()
     def mel_encode(spec_log_power: torch.Tensor) -> torch.Tensor:
@@ -105,15 +112,23 @@ def make_autoencoder_train_step(model: SpectrogramAutoencoder, sr: int = 44100,
         return torch.log1p(torch.matmul(power, fb.t()))
 
     def loss_fn(mel: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        return losses.mel_multiscale_spectral_loss(model(mel), mel, weight,
-                                                   band_scales=band_scales)
+        with profiling.span("train.forward"):
+            pred = model(mel)
+        with profiling.span("train.loss"):
+            return losses.mel_multiscale_spectral_loss(pred, mel, weight,
+                                                       band_scales=band_scales)
 
     def step(spec_log_power: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(mel_encode(spec_log_power), weight)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with profiling.span("train.step", step=True):
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.span("train.input"):
+                mel = mel_encode(spec_log_power)
+            loss = loss_fn(mel, weight)
+            with profiling.span("train.backward"):
+                loss.backward()
+            with profiling.span("train.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return AutoencoderTrainer(step=step, optimizer=optimizer, mel_encode=mel_encode,
                               loss_fn=loss_fn)

@@ -5,7 +5,8 @@ launch counters.
 loads it with ``torch.ops.load_library`` (its ``TORCH_LIBRARY`` block
 defines the operators and registers their CUDA, CPU and Meta
 implementations) and attaches the one thing defined from Python: the
-gradient of ``dropout_apply``. It returns ``torch.ops.mmst_torch``. Every
+gradient of ``dropout_apply``, all inside the set-up span
+``setup.library``. It returns ``torch.ops.mmst_torch``. Every
 wrapper in this package calls its operator through it, and
 ``compat/program_export.load_artifact`` loads it before a program that names
 the operators.
@@ -35,12 +36,14 @@ def ops():
 
 @functools.cache
 def _load():
+    from ...utils.profiling import setup_span
     from . import _build
 
-    _build.build_all()
-    torch.ops.load_library(_build.ops_library_path())
-    torch.library.register_autograd("mmst_torch::dropout_apply", _dropout_backward,
-                                    setup_context=_dropout_setup)
+    with setup_span("setup.library"):
+        _build.build_all()
+        torch.ops.load_library(_build.ops_library_path())
+        torch.library.register_autograd("mmst_torch::dropout_apply", _dropout_backward,
+                                        setup_context=_dropout_setup)
     return torch.ops.mmst_torch
 
 

@@ -86,6 +86,7 @@ from ..models import PerformanceNet
 from ..ops.kernels.dropout import fold_seed
 from ..parallel import comm
 from ..parallel import mesh as pmesh
+from ..utils import profiling
 from ..utils.logging import MetricsLogger
 from . import checkpoint as ckpt
 from . import losses, optim, orbax_format
@@ -171,33 +172,34 @@ class Trainer:
         """``mesh``: a ``parallel/mesh.make_mesh`` mesh; None builds one of
         ``train_cfg.mesh_shape`` over the launch's ranks on ``device``'s
         kind when that is not (1, 1), else trains on one device."""
-        if mesh is None and tuple(train_cfg.mesh_shape) != (1, 1):
-            mesh = pmesh.make_mesh(*train_cfg.mesh_shape, device=device)
-        self.mesh = mesh
-        if mesh is None:
-            self.device = resolve_device(device)
-        else:
-            if torch.device(device).type != mesh.device_type:
-                raise ValueError(f"device {device!r} on a {mesh.device_type} mesh")
-            self.device = pmesh.mesh_device(mesh)
-        self._batch_group = pmesh.batch_group(mesh)
-        self._model_group = pmesh.axis_group(mesh, "model")
-        self.n_batch_shards = pmesh.batch_size(mesh)
-        self.batch_rank = pmesh.batch_rank(mesh)
-        self.is_main = mesh is None or dist.get_rank() == 0
-        self.model_cfg = model_cfg
-        self.cfg = train_cfg
-        self.stream_dtype = stream_dtype
-        self.use_native_loader = use_native_loader
-        self.scheduler = ReduceLROnPlateau(lr=train_cfg.learning_rate,
-                                           factor=train_cfg.plateau_factor,
-                                           patience=train_cfg.plateau_patience)
-        self.exp_root = exp_root
-        self.exp_dir = os.path.join(exp_root, train_cfg.exp_name)
-        self.model: PerformanceNet | None = None
-        self.optimizer: torch.optim.Adam | optim.TrainOptimizer | None = None
-        # one 64-bit dropout seed per train step, drawn on the host
-        self.dropout_gen = torch.Generator().manual_seed(train_cfg.seed)
+        with profiling.setup_span("setup.model"):
+            if mesh is None and tuple(train_cfg.mesh_shape) != (1, 1):
+                mesh = pmesh.make_mesh(*train_cfg.mesh_shape, device=device)
+            self.mesh = mesh
+            if mesh is None:
+                self.device = resolve_device(device)
+            else:
+                if torch.device(device).type != mesh.device_type:
+                    raise ValueError(f"device {device!r} on a {mesh.device_type} mesh")
+                self.device = pmesh.mesh_device(mesh)
+            self._batch_group = pmesh.batch_group(mesh)
+            self._model_group = pmesh.axis_group(mesh, "model")
+            self.n_batch_shards = pmesh.batch_size(mesh)
+            self.batch_rank = pmesh.batch_rank(mesh)
+            self.is_main = mesh is None or dist.get_rank() == 0
+            self.model_cfg = model_cfg
+            self.cfg = train_cfg
+            self.stream_dtype = stream_dtype
+            self.use_native_loader = use_native_loader
+            self.scheduler = ReduceLROnPlateau(lr=train_cfg.learning_rate,
+                                               factor=train_cfg.plateau_factor,
+                                               patience=train_cfg.plateau_patience)
+            self.exp_root = exp_root
+            self.exp_dir = os.path.join(exp_root, train_cfg.exp_name)
+            self.model: PerformanceNet | None = None
+            self.optimizer: torch.optim.Adam | optim.TrainOptimizer | None = None
+            # one 64-bit dropout seed per train step, drawn on the host
+            self.dropout_gen = torch.Generator().manual_seed(train_cfg.seed)
 
     # ---- state --------------------------------------------------------
     def init_state(self, seed: int = 0):
@@ -206,17 +208,18 @@ class Trainer:
         Adam, or the chain of the config's options). Other weights load in
         place afterwards (``model.load_state_dict``); the optimizer keeps
         them, and an EMA starts from the weights it was built on."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.model = PerformanceNet(self.model_cfg, device=self.device, generator=gen)
-        if comm.group_size(self._model_group) > 1:
-            self.model.shard_tensor_parallel_(self._model_group)
-        named = list(self.model.named_parameters())
-        if self.mesh is not None and self.cfg.zero_opt:
-            self.optimizer = optim.ZeroOptimizer(named, self.cfg, self.scheduler.lr,
-                                                 self.device, self._batch_group)
-        else:
-            self.optimizer = optim.build_optimizer(named, self.cfg, self.scheduler.lr,
-                                                   self.device)
+        with profiling.setup_span("setup.model"):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.model = PerformanceNet(self.model_cfg, device=self.device, generator=gen)
+            if comm.group_size(self._model_group) > 1:
+                self.model.shard_tensor_parallel_(self._model_group)
+            named = list(self.model.named_parameters())
+            if self.mesh is not None and self.cfg.zero_opt:
+                self.optimizer = optim.ZeroOptimizer(named, self.cfg, self.scheduler.lr,
+                                                     self.device, self._batch_group)
+            else:
+                self.optimizer = optim.build_optimizer(named, self.cfg, self.scheduler.lr,
+                                                       self.device)
         return self.model, self.optimizer
 
     def _names(self) -> list[str]:
@@ -412,28 +415,36 @@ class Trainer:
 
     # ---- steps --------------------------------------------------------
     def loss(self, batch: dict, dropout_seed: int) -> torch.Tensor:
-        pred = self.model(batch["midi"], batch["cond"], batch["onoff"],
-                          deterministic=False, dropout_seed=dropout_seed)
-        loss = losses.l1_loss(pred, batch["target"], batch["weight"])
-        if self.cfg.spectral_loss_weight > 0.0:
-            loss = loss + self.cfg.spectral_loss_weight * losses.multiscale_spectral_loss(
-                pred, batch["target"], batch["weight"], mode=self.cfg.spectral_loss_mode)
+        with profiling.span("train.forward"):
+            pred = self.model(batch["midi"], batch["cond"], batch["onoff"],
+                              deterministic=False, dropout_seed=dropout_seed)
+        with profiling.span("train.loss"):
+            loss = losses.l1_loss(pred, batch["target"], batch["weight"])
+            if self.cfg.spectral_loss_weight > 0.0:
+                loss = loss + self.cfg.spectral_loss_weight * losses.multiscale_spectral_loss(
+                    pred, batch["target"], batch["weight"], mode=self.cfg.spectral_loss_mode)
         return loss
 
     def train_step(self, batch: dict, dropout_seed: int) -> torch.Tensor:
         """One optimizer call on ``batch`` (device tensors; on a mesh this
         rank's share, ``shard_batch``): an update, or with ``grad_accum =
         k`` one of k microbatches, whose k-th applies the mean. Returns the
-        (global) loss as a device scalar."""
-        self.optimizer.zero_grad(set_to_none=True)
-        w, total = self._batch_weights(batch["weight"])
-        loss = self.loss(batch, fold_seed(dropout_seed, self.batch_rank)) * (w / total)
-        loss.backward()
-        for p in self.model.parameters():
-            if p.grad is not None:
-                comm.all_reduce_(p.grad, self._batch_group)
-        self.optimizer.step()
-        return comm.all_reduce_(loss.detach(), self._batch_group)
+        (global) loss as a device scalar. Traced, it is the span
+        ``train.step`` (a new step, counting the allocator's calls) around
+        ``train.forward``, ``train.loss``, ``train.backward`` (the
+        gradients' all-reduce included) and ``train.optimizer``."""
+        with profiling.span("train.step", step=True):
+            self.optimizer.zero_grad(set_to_none=True)
+            w, total = self._batch_weights(batch["weight"])
+            loss = self.loss(batch, fold_seed(dropout_seed, self.batch_rank)) * (w / total)
+            with profiling.span("train.backward"):
+                loss.backward()
+                for p in self.model.parameters():
+                    if p.grad is not None:
+                        comm.all_reduce_(p.grad, self._batch_group)
+            with profiling.span("train.optimizer"):
+                self.optimizer.step()
+            return comm.all_reduce_(loss.detach(), self._batch_group)
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:

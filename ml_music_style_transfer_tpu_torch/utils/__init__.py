@@ -1,2 +1,2 @@
-"""Support code: structured metrics logging (``logging``), profiling, step
-timing and NaN debugging (``profiling``)."""
+"""Support code: structured metrics logging (``logging``), the program's
+spans and counters, profiling and NaN debugging (``profiling``)."""
