@@ -65,6 +65,17 @@ scipy and the standard library. Phases, each reported on its own lines:
      thresholds and the backward of ``dropout`` (the operator); the kernel's time
      at (16, 384, 860) beside its plain version's, ``F.dropout``'s and its
      bound;
+  10b. relayout kernel K4 and the channel-last step (``layout_phase``): at
+     the training shapes ((64, 1536, 860) and (16, 1536, 860), the
+     autoencoder's (256, 256, 860)), bf16 to f32, f32 to bf16 and bf16 to
+     bf16, into each layout, and a channel band of a wider tensor, K4 must
+     equal the plain cast ``x.to(dst)`` bit for bit, with one launch a
+     call on its counter; its time beside PyTorch's transposing ``copy_``
+     into the same layout and the same-layout cast, with its byte bound.
+     Then one full-width PerformanceNet train step at batch 64 (dropout on,
+     L1 loss) through the public channel-last forward must equal the
+     ``forward_channel_first`` step bit for bit: the output and all 218
+     gradients;
   11. training path: ``Trainer`` at full width and batch 16 on seeded
      synthetic chunks (``ChunkDataset.from_arrays``): ``train_epoch`` (2
      steps), 10 steps on one repeated batch (finite, falling loss) and
@@ -144,7 +155,10 @@ scipy and the standard library. Phases, each reported on its own lines:
   18. support code: ``device_trace`` of a warm request names both glue
      kernels and its ``profiling.span``; six full-width train steps (batch
      16) under ``device_trace`` record their program spans, each
-     ``train.step``'s device time within 5 % of CUDA events around it; two steps
+     ``train.step``'s device time within 5 % of CUDA events around it, no
+     cuDNN layout transpose (``nchwToNhwc``/``nhwcToNchw``) among their
+     kernels, 99 of 99 convolution calls a step channel-last, and K4's
+     launch counter equal to the K4 kernels in the trace; two steps
      under ``nan_debugging`` (no false positive, 10 + 10 dropout launches
      seen by the mode as ``mmst_torch::dropout_apply``, the slowdown); a
      NaN in a batch's conditioning raises ``FloatingPointError`` naming the
@@ -970,6 +984,101 @@ def dropout_phase(torch, dk):
     print(f"timing {TIMED_SHAPE} bf16 dropout_mask: kernel_ms={mask_ms:.4f} "
           f"bound_us={mask_bound[0] * 1e3:.2f} ({mask_bound[1]})")
     return err, t
+
+
+# ---- phase 10b: relayout kernel K4 and the channel-last step -----------------
+
+# (B, C, T) tensors K4 moves in training: PerformanceNet's widest encoder
+# activations at the benchmark's batch 64 and phase 11's 16, and the
+# autoencoder's at batch 256 (width 256)
+RELAYOUT_SHAPES = ((64, 1536, 860), (16, 1536, 860), (256, 256, 860))
+LAYOUT_STEP_BATCH = 64
+
+
+def layout_phase(torch, rl):
+    from ml_music_style_transfer_tpu_torch.config import ModelConfig
+    from ml_music_style_transfer_tpu_torch.models import PerformanceNet
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rl.reset_launches()
+    calls = 0
+
+    def laid(x, channel_last: bool):
+        """(B, C, T) ``x`` stored channel-last or channel-first, dense."""
+        return x.transpose(1, 2).contiguous().transpose(1, 2) if channel_last else x.contiguous()
+
+    for shape in RELAYOUT_SHAPES:
+        b, c, t = shape
+        for src, dst in ((bf16, f32), (f32, bf16), (bf16, bf16)):
+            for first in (True, False):  # into channel-first from channel-last, or back
+                wide = laid(torch.randn(b, c + 3, t, device="cuda", generator=gen).to(src), first)
+                for band, x in ((True, wide[:, 3:]), (False, laid(wide[:, 3:], first))):
+                    y = rl.relayout(x, dst, first)
+                    calls += 1
+                    stored = y.is_contiguous() if first else y.transpose(1, 2).is_contiguous()
+                    same = torch.equal(y, x.to(dst))
+                    check(same and stored, f"relayout {shape} {src} -> {dst} channel_first="
+                          f"{first} band={band}: bit-equal={same}, laid out={stored}")
+                del wide, x, y
+    print(f"relayout: {calls} calls at {list(RELAYOUT_SHAPES)}, bf16->f32, f32->bf16, "
+          f"bf16->bf16, both ways, whole and a band: bit-equal to x.to(dst); "
+          f"K4 launches {rl.LAUNCHES['relayout']}")
+    check(rl.LAUNCHES["relayout"] == calls, "relayout: a call did not launch K4 once")
+
+    for shape in RELAYOUT_SHAPES[:1] + RELAYOUT_SHAPES[2:]:
+        b, c, t = shape
+        for src, dst in ((bf16, f32), (f32, bf16), (bf16, bf16)):
+            for first in (True, False):
+                x = torch.randn(shape, device="cuda", generator=gen).to(src)
+                if first:  # a channel-last input
+                    x = x.transpose(1, 2).contiguous().transpose(1, 2)
+                out = torch.empty(shape, dtype=dst, device="cuda") if first else \
+                    torch.empty(b, t, c, dtype=dst, device="cuda").transpose(1, 2)
+                n_bytes = x.numel() * (x.element_size() + out.element_size())
+                k4 = cuda_ms(lambda: rl.relayout(x, dst, first), n=20)
+                copy = cuda_ms(lambda: out.copy_(x), n=20)
+                cast = cuda_ms(lambda: x.to(dst, copy=True), n=20)
+                bound = n_bytes / HBM_BYTES_PER_S * 1e3
+                print(f"timing relayout {shape} {str(src)[6:]}->{str(dst)[6:]} to "
+                      f"{'channel-first' if first else 'channel-last'}: K4 {k4:.4f} ms "
+                      f"({100 * bound / k4:.1f} % of the {bound:.4f} ms byte bound), "
+                      f"transposing copy_ {copy:.4f} ms ({100 * bound / copy:.1f} %), "
+                      f"same-layout cast {cast:.4f} ms ({100 * bound / cast:.1f} %)")
+        del x, out
+    torch.cuda.empty_cache()
+
+    # one full-width train step at batch 64, channel-last against channel-first
+    model = PerformanceNet(ModelConfig(), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    B, T = LAYOUT_STEP_BATCH, 860
+    midi = (torch.rand(B, T, 128, device="cuda", generator=gen) < 0.05).float()
+    spec = torch.rand(B, 1025, T, device="cuda", generator=gen).transpose(1, 2) * 4
+    onoff = torch.randint(-1, 2, (B, T, 128), device="cuda", generator=gen).float()
+    target = torch.rand(B, 1025, T, device="cuda", generator=gen).transpose(1, 2)
+
+    def step(channel_first: bool):
+        model.zero_grad(set_to_none=True)
+        if channel_first:
+            pred = model.forward_channel_first(
+                *(v.transpose(1, 2).contiguous() for v in (midi, spec, onoff)),
+                deterministic=False, dropout_seed=DROPOUT_SEED).transpose(1, 2)
+        else:
+            pred = model(midi, spec, onoff, deterministic=False, dropout_seed=DROPOUT_SEED)
+        (pred - target).abs().mean().backward()
+        return pred.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    pl, gl = step(False)
+    pc, gc_ = step(True)
+    differ = [k for k in gc_ if not torch.equal(gc_[k], gl[k])]
+    same = torch.equal(pl, pc)
+    print(f"channel-last step at full width, batch {B}: output bit-equal={same}, "
+          f"{len(gc_) - len(differ)} of {len(gc_)} gradients bit-equal to the channel-first "
+          f"step's{'; differing: ' + ', '.join(differ[:8]) if differ else ''}")
+    check(same and not differ and len(gc_) == 218,
+          "the channel-last train step is not the channel-first one bit for bit")
+    del model, pl, pc, gl, gc_
+    torch.cuda.empty_cache()
 
 
 # ---- phase 11: training path -------------------------------------------------
@@ -1963,6 +2072,8 @@ def aoti_phase(torch, glue, tstft, ref, state, tmp) -> int:
 
 SPAN_TOL = 0.05
 TRAIN_PHASES = ("train.forward", "train.loss", "train.backward", "train.optimizer")
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's layout transposes
+PNET_CONV_CALLS = 99  # convolution calls of one PerformanceNet forward
 
 
 def support_phase(torch, dk, glue, binf, state, cfg, tmp):
@@ -1970,7 +2081,10 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     and its ``profiling.span``; six full-width train steps (batch 16) under
     ``device_trace``: each records ``train.step`` and its four phases with
     one step id, its device time within 5 % of CUDA events around the
-    call, and the trace names the spans; the step under
+    call, and the trace names the spans; no kernel of cuDNN's layout
+    transposes runs in them, each step counts its 99 convolution calls
+    channel-last, and K4's launch counter reads as many launches as the
+    trace holds K4 kernels, the same number each step; the step under
     ``nan_debugging`` (no false positive, 10 + 10 dropout launches seen by
     the mode as ``mmst_torch::dropout_apply``, its slowdown) and a NaN in a
     batch's conditioning raising ``FloatingPointError``; the phase-4 weights
@@ -1983,6 +2097,7 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     from ml_music_style_transfer_tpu_torch.config import ModelConfig, TrainConfig
     from ml_music_style_transfer_tpu_torch.data.dataset import ChunkDataset
     from ml_music_style_transfer_tpu_torch.infer import synthesize as synth_mod
+    from ml_music_style_transfer_tpu_torch.ops.kernels import relayout as rl
     from ml_music_style_transfer_tpu_torch.scripts.bench_train import host_arrays
     from ml_music_style_transfer_tpu_torch.train.loop import Trainer, device_prefetch
     from ml_music_style_transfer_tpu_torch.utils import profiling
@@ -2043,8 +2158,10 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
     plain_s = statistics.median(host_s[1:])
     profiling.clear_spans()
     step_dir = os.path.join(tmp, "step_trace")
+    rl.reset_launches()
     with profiling.device_trace(step_dir):
         ev_ms, _ = steps(6)
+    k4_launches = rl.LAUNCHES["relayout"]
     recs = profiling.spans()
     step_recs = [r for r in recs if r.name == "train.step"]
     check(len(step_recs) == 6 and all(r.device_s is not None for r in step_recs),
@@ -2061,8 +2178,24 @@ def support_phase(torch, dk, glue, binf, state, cfg, tmp):
           f"calls {[r.counters.get('allocator_calls') for r in step_recs]}")
     check(all(abs(g) <= SPAN_TOL for g in gaps), "support: span device times disagree with events")
     with open(os.path.join(step_dir, "trace.json")) as f:
-        named = {e.get("name") for e in json.load(f)["traceEvents"]}
+        step_events = json.load(f)["traceEvents"]
+    named = {e.get("name") for e in step_events}
     check({"train.step", *TRAIN_PHASES} <= named, "support: the trace lacks the train spans")
+    # the model runs channel-last: cuDNN transposes nothing, every conv counts
+    transposes = sum(e.get("cat") == "kernel" and any(k in e.get("name", "") for k in LAYOUT_KERNELS)
+                     for e in step_events)
+    convs = [(r.counters.get("conv_calls"), r.counters.get("conv_channel_last_calls"))
+             for r in step_recs]
+    k4_kernels = sum(e.get("cat") == "kernel" and "relayout_kernel" in e.get("name", "")
+                     for e in step_events)
+    print(f"support: 6 traced steps: {transposes} layout-transpose kernels "
+          f"({' / '.join(LAYOUT_KERNELS)}); (conv calls, channel-last) per step {convs}; "
+          f"K4 launches {k4_launches} ({k4_launches / 6:g} a step), {k4_kernels} K4 kernels "
+          f"in the trace")
+    check(transposes == 0 and all(c == (PNET_CONV_CALLS, PNET_CONV_CALLS) for c in convs),
+          "support: a convolution ran channel-first or cuDNN transposed a layout")
+    check(k4_launches > 0 and k4_launches % 6 == 0 and k4_kernels == k4_launches,
+          "support: K4's launch counter disagrees with the trace or the steps")
     profiling.clear_spans()
     launches = 12 * 20
 
@@ -3657,6 +3790,7 @@ def main() -> None:
     from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
     from ml_music_style_transfer_tpu_torch.ops.kernels import fused_conv as fc
     from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue as glue
+    from ml_music_style_transfer_tpu_torch.ops.kernels import relayout as rl
     from ml_music_style_transfer_tpu_torch.scripts import bench_inference as binf
 
     smi = binf.smi_line()
@@ -3697,6 +3831,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     check(not any(fc.LAUNCHES.values()), "serving launched the fused conv kernel")
     dropout_err, dropout_t = timed("10 (dropout kernel vs plain)", dropout_phase, torch, dk)
+    timed("10b (relayout kernel and the channel-last step)", layout_phase, torch, rl)
     dropout_launches, tr, fed_step = timed("11 (training)", train_phase, torch, dk, glue)
     glue.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:

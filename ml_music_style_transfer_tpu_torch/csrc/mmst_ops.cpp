@@ -9,6 +9,7 @@
 //                ScalarType dtype, Device device) -> Tensor                     K2
 //   conv1x3_instnorm_lrelu(Tensor x, Tensor w, Tensor b, float eps=1e-05,
 //                          float slope=0.01) -> Tensor                          K1
+//   relayout(Tensor x, int dtype, bool channel_first) -> Tensor                K4
 // (the first three with the names and schemas that programs exported
 // earlier name), and the launch counters. Each operator has
 //   - a CUDA implementation (built with MMST_WITH_CUDA) that launches the
@@ -57,6 +58,8 @@ int conv1x3_instnorm_lrelu(const void* x, const void* w, const float* bias, floa
                            long long batch, int t_len, int cin, int cout, int ldw, int dtype,
                            float eps, float slope, cudaStream_t stream);
 long long conv1x3_instnorm_lrelu_ctas(long long batch, int t_len, int cout, int dtype);
+int relayout(const void* x, void* y, long long B, long long R, long long S, long long xb,
+             long long xr, long long xs, int in_dtype, int out_dtype, cudaStream_t stream);
 }
 #endif
 
@@ -64,10 +67,11 @@ namespace {
 
 // ---- launch counters --------------------------------------------------------
 
-enum Entry : int { kOla, kFrame, kMask, kApply, kGrad, kConv, kEntries };
-constexpr const char* kEntryNames[kEntries] = {"gl_ola_nola", "gl_frame_window",
-                                               "dropout_mask", "dropout_apply",
-                                               "dropout_grad", "conv1x3_instnorm_lrelu"};
+enum Entry : int { kOla, kFrame, kMask, kApply, kGrad, kConv, kRelayout, kEntries };
+constexpr const char* kEntryNames[kEntries] = {"gl_ola_nola",   "gl_frame_window",
+                                               "dropout_mask",  "dropout_apply",
+                                               "dropout_grad",  "conv1x3_instnorm_lrelu",
+                                               "relayout"};
 enum Dev : int { kCuda, kCpu, kDevs };
 std::atomic<int64_t> g_counts[kEntries][kDevs];
 
@@ -275,6 +279,35 @@ at::Tensor conv1x3_cpu(const at::Tensor& x, const at::Tensor& w, const at::Tenso
   return out;
 }
 
+// relayout: (B, C, T) x as ``dtype``, stored channel-first contiguous or
+// channel-last (the transpose view of a contiguous (B, T, C)). The dtype
+// travels as a code of this operator's own (0 float32, 1 bfloat16, 2
+// float64; ops/kernels/relayout.py): AOTInductor's runtime hands a
+// ScalarType argument of a custom operator on as another type. K4 takes
+// float32 and bfloat16; float64 is the CPU's, for the float64 yardstick.
+at::ScalarType relayout_type(int64_t code) {
+  constexpr at::ScalarType kTypes[] = {at::kFloat, at::kBFloat16, at::kDouble};
+  TORCH_CHECK(code >= 0 && code < 3, "relayout: unknown dtype code ", code);
+  return kTypes[code];
+}
+
+at::Tensor relayout_empty(const at::Tensor& x, at::ScalarType dtype, bool channel_first) {
+  const auto opts = x.options().dtype(dtype);
+  if (channel_first) return at::empty_symint(x.sym_sizes(), opts);
+  return at::empty_symint({x.sym_size(0), x.sym_size(2), x.sym_size(1)}, opts).transpose(1, 2);
+}
+
+void check_relayout(const at::Tensor& x) {
+  TORCH_CHECK(x.dim() == 3, "relayout takes (B, C, T), got ", x.sizes());
+}
+
+at::Tensor relayout_cpu(const at::Tensor& x, int64_t dtype, bool channel_first) {
+  check_relayout(x);
+  at::Tensor out = relayout_empty(x, relayout_type(dtype), channel_first).copy_(x);
+  bump(kRelayout, kCpu);
+  return out;
+}
+
 // ---- Meta implementations: shapes only --------------------------------------
 
 at::Tensor ola_nola_meta(const at::Tensor& frames, const at::Tensor& window,
@@ -294,6 +327,11 @@ at::Tensor dropout_apply_meta(const at::Tensor& x, c10::SymInt, c10::SymInt, dou
 at::Tensor conv1x3_meta(const at::Tensor& x, const at::Tensor& w, const at::Tensor&, double,
                         double) {
   return at::empty_symint({x.sym_size(0), x.sym_size(1), w.sym_size(2)}, x.options());
+}
+
+at::Tensor relayout_meta(const at::Tensor& x, int64_t dtype, bool channel_first) {
+  check_relayout(x);
+  return relayout_empty(x, relayout_type(dtype), channel_first);
 }
 
 // ---- CUDA implementations: the hand-written kernels -------------------------
@@ -401,6 +439,33 @@ at::Tensor conv1x3_cuda(const at::Tensor& x_in, const at::Tensor& w_in, const at
   bump(kConv, kCuda);
   return out;
 }
+
+int relayout_dtype(at::ScalarType t, const char* what) {
+  TORCH_CHECK(t == at::kFloat || t == at::kBFloat16, "relayout on the card: ", what,
+              " must be float32 or bfloat16, got ", t);
+  return t == at::kBFloat16 ? 1 : 0;
+}
+
+at::Tensor relayout_cuda(const at::Tensor& x, int64_t dtype_code, bool channel_first) {
+  check_relayout(x);
+  const at::ScalarType dtype = relayout_type(dtype_code);
+  const int in_dtype = relayout_dtype(x.scalar_type(), "the input"),
+            out_dtype = relayout_dtype(dtype, "the output");
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor out = relayout_empty(x, dtype, channel_first);
+  if (x.numel() == 0) return out;
+  // each batch item (R, S), read through x's strides, is written transposed
+  // (S, R): to channel-first R = T, S = C; to channel-last R = C, S = T.
+  // The reads coalesce where S has unit stride, the layout the models hand
+  // it (a tensor already stored as asked is cast by its caller, not here)
+  const int64_t fast = channel_first ? 1 : 2, slow = 3 - fast;
+  launched(relayout(x.data_ptr(), out.data_ptr(), x.size(0), x.size(slow), x.size(fast),
+                    x.stride(0), x.stride(slow), x.stride(fast), in_dtype, out_dtype,
+                    stream_of(x)),
+           "relayout");
+  bump(kRelayout, kCuda);
+  return out;
+}
 #endif
 
 // ---- operators without tensor inputs: dispatched here by their arguments -----
@@ -457,6 +522,7 @@ TORCH_LIBRARY(mmst_torch, m) {
         &dropout_mask_any);
   m.def("conv1x3_instnorm_lrelu_ctas(int batch, int t, int cout, ScalarType dtype) -> int",
         &conv1x3_ctas);
+  m.def("relayout(Tensor x, int dtype, bool channel_first) -> Tensor");
   m.def("launch_entries() -> str[]", &launch_entries);
   m.def("launch_count(str op, str device) -> int", &launch_count);
   m.def("reset_launch_count(str op) -> ()", &reset_launch_count);
@@ -467,6 +533,7 @@ TORCH_LIBRARY_IMPL(mmst_torch, CPU, m) {
   m.impl("gl_frame_window", &frame_window_cpu);
   m.impl("dropout_apply", &dropout_apply_cpu);
   m.impl("conv1x3_instnorm_lrelu", &conv1x3_cpu);
+  m.impl("relayout", &relayout_cpu);
 }
 
 TORCH_LIBRARY_IMPL(mmst_torch, Meta, m) {
@@ -474,6 +541,7 @@ TORCH_LIBRARY_IMPL(mmst_torch, Meta, m) {
   m.impl("gl_frame_window", &frame_window_meta);
   m.impl("dropout_apply", &dropout_apply_meta);
   m.impl("conv1x3_instnorm_lrelu", &conv1x3_meta);
+  m.impl("relayout", &relayout_meta);
 }
 
 #ifdef MMST_WITH_CUDA
@@ -482,6 +550,7 @@ TORCH_LIBRARY_IMPL(mmst_torch, CUDA, m) {
   m.impl("gl_frame_window", &frame_window_cuda);
   m.impl("dropout_apply", &dropout_apply_cuda);
   m.impl("conv1x3_instnorm_lrelu", &conv1x3_cuda);
+  m.impl("relayout", &relayout_cuda);
 }
 #endif
 

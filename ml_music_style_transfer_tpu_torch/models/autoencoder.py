@@ -6,7 +6,13 @@ DSP, built from the same blocks (``models/layers.py``) with the same public
 layout, channel-last (B, T, bins): three DownConvs (pooling on the first
 two), two torch-semantics ConvTransposes (k 4, s 2, p 1: an exact 2x
 upsample) each with InstanceNorm + LeakyReLU, and a Conv1x3 head with ReLU.
-T must be divisible by 4. The modules carry the flax module names
+T must be divisible by 4. Inside, the shapes are channel-first (B, C, T);
+in a training forward on the card the memory is channel-last, as in
+PerformanceNet: the input is cast to the compute dtype as a contiguous
+(B, T, bins) tensor and viewed as (B, bins, T) (``layers.model_input``),
+so cuDNN runs every convolution and its gradients in NHWC with no
+transpose; the head's output returns channel-first and leaves as its
+(B, T, bins) view. The modules carry the flax module names
 (``down_0``, ``down_1``, ``bottleneck``, ``up_0``, ``up_1``, ``head``), so
 ``compat/weights.from_jax_params(tree, AUTOENCODER)`` loads a flax tree.
 
@@ -28,7 +34,8 @@ from torch import nn
 
 from ..ops import mel as tmel
 from ..utils import profiling
-from .layers import Conv1x3, ConvTranspose1dTorch, DownConv, instance_norm, leaky_relu
+from .layers import (Conv1x3, ConvTranspose1dTorch, DownConv, _dtype, instance_norm,
+                     leaky_relu, model_input, to_channel_first)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,13 +73,12 @@ class SpectrogramAutoencoder(nn.Module):
                         nn.init.xavier_normal_(p, generator=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.transpose(1, 2)
-        h, _ = self.down_0(h)
+        h, _ = self.down_0(model_input(x, _dtype(self.cfg.compute_dtype)))
         h, _ = self.down_1(h)
         h, _ = self.bottleneck(h)
         h = leaky_relu(instance_norm(self.up_0(h)))
         h = leaky_relu(instance_norm(self.up_1(h)))
-        return F.relu(self.head(h)).float().transpose(1, 2)
+        return F.relu(to_channel_first(self.head(h))).float().transpose(1, 2)
 
 
 class AutoencoderTrainer(NamedTuple):

@@ -18,7 +18,17 @@ loads with ``load_state_dict(strict=True)``.
 
 Public I/O is the JAX layout: midi (B, T, 128), conditioning spec
 (B, T, 1025), onoff (B, T, 128) -> (B, T, 1025) float32 (float64 with a
-float64 compute dtype). Inside, the model runs channel-first.
+float64 compute dtype). Inside, the shapes are channel-first (B, C, T). In
+a training forward on the card the memory is channel-last: ``forward``
+casts each input to the compute dtype as a contiguous (B, T, C) tensor
+(one pass, the cast the first convolution makes anyway;
+``layers.model_input``) and views it as (B, C, T), so every convolution
+hands cuDNN the NHWC layout its bf16 engines run in, and no transpose runs
+around a convolution or its gradients (``models/layers.py``); the head's
+output returns channel-first, the layout the loss's target (the STFT's
+(B, 1025, T)) is stored in, and leaves as its (B, T, 1025) view. On the
+CPU and in inference the inputs enter channel-first contiguous.
+``forward_channel_first`` takes the layout it is given.
 
 Training mode (``deterministic=False``) takes a 64-bit ``dropout_seed``:
 DenseConcat i draws its two masks with call indices 2i and 2i + 1, so one
@@ -33,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from .layers import (ConvTranspose1dTorch, DenseConcat, DownConv, MBRBlock, UpConv, _Affine,
-                     leaky_relu, stat_dtype)
+                     _dtype, channel_last, leaky_relu, model_input, stat_dtype,
+                     to_channel_first, to_channel_last)
 
 
 class OnsetOffsetEncoder(nn.Module):
@@ -177,6 +188,8 @@ class PerformanceNet(nn.Module):
             audio_skips.append(before)
 
         x = self.dense_concats[0](h, a, deterministic, dropout_seed, 0)
+        if channel_last(h):  # the decoder runs in the encoders' layout
+            x = to_channel_last(x)
         onoff_conditions = self.onset_offset_encoder(cond)
         for i, up in enumerate(self.up_convs):
             skip = self.dense_concats[i + 1](midi_skips[-(i + 2)], audio_skips[-(i + 2)],
@@ -186,17 +199,20 @@ class PerformanceNet(nn.Module):
             x = up(skip, x, c)
         for j in range(1, 5):
             x = getattr(self, f"MBRBlock{j}")(x)
-        x = self.lastconv.full(self.lastconv(x))
+        # leaves channel-first, as the loss's target is stored
+        x = to_channel_first(self.lastconv.full(self.lastconv(x)))
         x = leaky_relu(x, self.cfg.leaky_relu_slope)
         return x.to(stat_dtype(x.dtype))
 
     def forward(self, x_midi, x_audio, cond, deterministic: bool = True,
                 dropout_seed: int | None = None):
         """midi (B,T,128), audio spec (B,T,1025), onoff (B,T,128) ->
-        (B,T',1025) float32, the JAX model's channel-last signature."""
-        out = self.forward_channel_first(
-            x_midi.transpose(1, 2), x_audio.transpose(1, 2), cond.transpose(1, 2),
-            deterministic, dropout_seed)
+        (B,T',1025) float32, the JAX model's channel-last signature; a
+        training forward runs channel-last inside on the card (the module
+        docstring)."""
+        dt = _dtype(self.cfg.compute_dtype)
+        out = self.forward_channel_first(*(model_input(x, dt) for x in (x_midi, x_audio, cond)),
+                                         deterministic, dropout_seed)
         return out.transpose(1, 2)
 
 

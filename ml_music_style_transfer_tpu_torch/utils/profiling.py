@@ -12,9 +12,13 @@ JAX package's ``utils/profiling.py``.
     the device seconds between two CUDA events recorded on the current
     stream at its ends (``device=False``: none); and its counters: a step
     counts the caching allocator's ``cudaMalloc`` and ``cudaFree`` calls
-    while it is open (``allocator_calls``). It also opens a
+    while it is open (``allocator_calls``), and how far each of the
+    program's own counts (``register_counts``) moved, those that did. It also opens a
     ``record_function`` range of its name, so the profiler's trace shows
     the program's spans among the operators and kernels;
+  - ``register_counts(counts)``: a dict of running counts that a module
+    keeps (the convolutions' calls, ``models/layers.py``), which every
+    recorded step then reads at its ends;
   - ``setup_span(name)``: a span of set-up, recorded in every run, with
     host times only, so a traced run can read set-up by phase afterwards;
   - ``spans()``: the recorded spans in the order they closed, with their
@@ -58,6 +62,9 @@ ALLOCATION_OPS = frozenset({"empty", "empty_like", "empty_strided", "empty_permu
 
 MAX_SPANS = 1 << 16
 
+# the program's running counts (register_counts), read by every recorded step
+_COUNTS: list[dict] = []
+
 
 @dataclasses.dataclass(slots=True, eq=False)
 class Span:
@@ -81,6 +88,18 @@ def _allocator_calls() -> int | None:
         return None
     stats = torch.cuda.memory_stats_as_nested_dict()
     return stats.get("num_device_alloc", 0) + stats.get("num_device_free", 0)
+
+
+def register_counts(counts: dict) -> dict:
+    """Register ``counts``, a dict of running integer counts that its owner
+    updates: a recorded step carries, among its counters, how far each of
+    them moved while it was open. Returns ``counts``."""
+    _COUNTS.append(counts)
+    return counts
+
+
+def _program_counts() -> dict:
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 class _Store:
@@ -126,12 +145,12 @@ _profiler_enabled = torch.autograd._profiler_enabled
 class _Recording:
     """The context of one recorded span."""
 
-    __slots__ = ("rec", "new_step", "device", "setup", "range", "allocs")
+    __slots__ = ("rec", "new_step", "device", "setup", "range", "allocs", "counts")
 
     def __init__(self, name: str, new_step: bool, device: bool, setup: bool):
         self.rec = Span(name, 0, None, None, 0)
         self.new_step, self.device, self.setup = new_step, device, setup
-        self.range = self.allocs = None
+        self.range = self.allocs = self.counts = None
 
     def __enter__(self):
         rec, store = self.rec, _STORE
@@ -153,6 +172,7 @@ class _Recording:
             self.range.__enter__()
         if self.new_step:
             self.allocs = _allocator_calls()
+            self.counts = _program_counts()
         if self.device and torch.cuda.is_initialized():
             rec.events = (store.event(), store.event())
             rec.events[0].record()
@@ -164,6 +184,10 @@ class _Recording:
             rec.events[1].record()
         if self.allocs is not None:
             rec.counters["allocator_calls"] = _allocator_calls() - self.allocs
+        if self.counts is not None:
+            rec.counters.update((k, v - self.counts.get(k, 0))
+                                for k, v in _program_counts().items()
+                                if v != self.counts.get(k, 0))
         if self.range is not None:
             self.range.__exit__(*exc)
         rec.end_ns = time.time_ns()

@@ -22,6 +22,7 @@ from ml_music_style_transfer_tpu.train import losses as jlosses
 from ml_music_style_transfer_tpu_torch.compat import from_jax_params, to_jax_params
 from ml_music_style_transfer_tpu_torch.compat.weights import AUTOENCODER
 from ml_music_style_transfer_tpu_torch.models import (AutoencoderConfig, SpectrogramAutoencoder,
+                                                      autoencoder, layers,
                                                       make_autoencoder_train_step)
 from ml_music_style_transfer_tpu_torch.ops import mel
 from ml_music_style_transfer_tpu_torch.scripts import bench_train
@@ -51,10 +52,20 @@ def _pair(n_bins, width, t, dtype="float32", seed=0):
     return jcfg, params, model
 
 
+def card_entry(x, dtype):
+    """``layers.model_input`` as it runs on the card: the (B, C, T) view of
+    a contiguous (B, T, C) tensor, so every block runs channel-last."""
+    return layers.relayout(x.transpose(1, 2), dtype, False)
+
+
 class TestModel:
+    @pytest.mark.parametrize("entry", ["cpu", "card"])
     @pytest.mark.parametrize("n_bins,width,t", [(32, 16, 64), (128, 16, 32), (1025, 8, 16)])
-    def test_forward_matches_jax(self, n_bins, width, t):
-        """float32: within 1e-4 relative + 1e-5 of the output's peak."""
+    def test_forward_matches_jax(self, n_bins, width, t, entry, monkeypatch):
+        """float32: within 1e-4 relative + 1e-5 of the output's peak, with
+        the CPU's entry (channel-first) and the card's (channel-last)."""
+        if entry == "card":
+            monkeypatch.setattr(autoencoder, "model_input", card_entry)
         jcfg, params, model = _pair(n_bins, width, t)
         x = np.abs(np.random.default_rng(2).standard_normal((2, t, n_bins))).astype(np.float32)
         want = np.asarray(JAutoencoder(jcfg).apply(params, jnp.asarray(x)))

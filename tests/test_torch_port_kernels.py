@@ -1,6 +1,6 @@
-"""The Griffin-Lim glue and fused-conv kernels' wrapper contracts (on the
-CPU) and the kernels against their plain PyTorch versions (on the card,
-``cuda`` marker).
+"""The Griffin-Lim glue, fused-conv and relayout kernels' wrapper contracts
+(on the CPU) and the kernels against their plain PyTorch versions (on the
+card, ``cuda`` marker).
 
 This file imports neither JAX nor the JAX package, so the card's tests run
 on a machine without them:
@@ -15,6 +15,7 @@ from ml_music_style_transfer_tpu_torch.ops import griffinlim as tgl
 from ml_music_style_transfer_tpu_torch.ops import stft as tstft
 from ml_music_style_transfer_tpu_torch.ops.kernels import fused_conv as tfc
 from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue as tglue
+from ml_music_style_transfer_tpu_torch.ops.kernels import relayout as trelayout
 
 N_FFT, HOP = 2048, 256
 # (B, T, Cin, Cout): the JAX test's shape (T = 64, one box exactly full; its
@@ -252,3 +253,63 @@ class TestFusedConvOnCard:
         assert float(got[1].abs().max()) <= 1e-3 and float(got[:, :, 16:32].abs().max()) <= 1e-3
         want = tfc.conv1x3_instnorm_lrelu_reference(x, w, b).float()
         assert bool(((got - want).abs() <= 2.0**-7 * want.abs() + 2e-4).all())
+
+
+# (B, C, T) of the relayout kernel K4: ragged tiles, one channel band of a
+# wider tensor (the MBR blocks' slices), and the widest training shapes
+RELAYOUT_SHAPES = [(2, 5, 7), (3, 33, 65), (1, 1025, 860), (4, 1536, 53), (2, 64, 860)]
+
+
+def _relayout_input(shape, dtype, first_in, device, band=False):
+    """A (B, C, T) tensor stored channel-last (``first_in`` False) or
+    channel-first; with ``band``, channels 3.. of a wider tensor."""
+    b, c, t = shape
+    extra = 3 if band else 0
+    g = torch.Generator().manual_seed(c * t)
+    x = torch.randn(b, c + extra, t, generator=g).to(dtype)
+    if not first_in:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    return x.to(device)[:, extra:]
+
+
+class TestRelayout:
+    @pytest.mark.parametrize("first", [True, False])
+    def test_cpu_values_and_layout(self, first):
+        x = _relayout_input((2, 6, 9), torch.bfloat16, first_in=first, device="cpu")
+        y = trelayout.relayout(x, torch.float32, not first)
+        assert y.dtype == torch.float32 and torch.equal(y, x.float())
+        assert (y.is_contiguous() if not first else y.transpose(1, 2).is_contiguous())
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("shape", RELAYOUT_SHAPES)
+    @pytest.mark.parametrize("dtypes", [(torch.bfloat16, torch.float32),
+                                        (torch.float32, torch.bfloat16),
+                                        (torch.bfloat16, torch.bfloat16)])
+    @pytest.mark.parametrize("first", [True, False])
+    def test_kernel_equals_the_plain_cast(self, shape, dtypes, first):
+        """Bit for bit: each value cast once, to nearest even, into the
+        other layout; a band of a wider tensor read through its strides."""
+        _need_card()
+        src, dst = dtypes
+        for band in (False, True):
+            x = _relayout_input(shape, src, first_in=not first, device="cuda", band=band)
+            y = trelayout.relayout(x, dst, first)
+            want = x.to(dst)
+            assert torch.equal(y, want), (shape, dtypes, first, band)
+            assert (y.is_contiguous() if first else y.transpose(1, 2).is_contiguous())
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("first", [True, False])
+    def test_kernel_launches_or_raises(self, first):
+        """On the card the operator launches K4 for every input of its
+        dtypes, one already stored as asked too (read through its strides),
+        and raises for any other dtype: no plain fallback."""
+        _need_card()
+        trelayout.reset_launches()
+        x = _relayout_input((2, 70, 90), torch.bfloat16, first_in=first, device="cuda")
+        y = trelayout.relayout(x, torch.float32, first)
+        assert torch.equal(y, x.float()) and trelayout.LAUNCHES["relayout"] == 1
+        for src, dst in ((torch.float64, torch.float32), (torch.float32, torch.float64)):
+            with pytest.raises(RuntimeError, match="float32 or bfloat16"):
+                trelayout.relayout(x.to(src), dst, first)
+        assert trelayout.LAUNCHES["relayout"] == 1

@@ -19,7 +19,7 @@ from ml_music_style_transfer_tpu_torch.compat import from_jax_params, load_refer
 from ml_music_style_transfer_tpu_torch.config import ModelConfig
 from ml_music_style_transfer_tpu_torch.infer.synthesize import build_model
 from ml_music_style_transfer_tpu_torch.models import PerformanceNet, forward_channel_first, temporal_ladder
-from ml_music_style_transfer_tpu_torch.models import layers
+from ml_music_style_transfer_tpu_torch.models import layers, performance_net
 
 TINY_KW = dict(width_mult=1 / 16, compute_dtype="float32")
 FULL_WIDTH_PARAMS = 731_945_857  # jax.eval_shape of the JAX model, default config
@@ -68,9 +68,20 @@ def flax_model():
     return _flax_params()
 
 
+def card_entry(x, dtype):
+    """``layers.model_input`` as it runs on the card: the (B, C, T) view of
+    a contiguous (B, T, C) tensor, so every block runs channel-last."""
+    return layers.relayout(x.transpose(1, 2), dtype, False)
+
+
 class TestForwardParity:
+    @pytest.mark.parametrize("entry", ["cpu", "card"])
     @pytest.mark.parametrize("compat", [False, True])
-    def test_forward_matches_jax(self, compat):
+    def test_forward_matches_jax(self, compat, entry, monkeypatch):
+        """With the CPU's entry (channel-first) and the card's (channel-last
+        memory throughout)."""
+        if entry == "card":
+            monkeypatch.setattr(performance_net, "model_input", card_entry)
         jmodel, params = _flax_params(compat=compat, seed=1)
         cfg = ModelConfig(compat_mbr_noop=compat, **TINY_KW)
         model = build_model(cfg, from_jax_params(params), "cpu")

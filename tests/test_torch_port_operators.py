@@ -19,6 +19,7 @@ from ml_music_style_transfer_tpu_torch.ops.kernels import _library
 from ml_music_style_transfer_tpu_torch.ops.kernels import dropout as dk
 from ml_music_style_transfer_tpu_torch.ops.kernels import fused_conv as fc
 from ml_music_style_transfer_tpu_torch.ops.kernels import gl_glue
+from ml_music_style_transfer_tpu_torch.ops.kernels import relayout as rl
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 # the schemas the operators had when they were defined in Python, which
@@ -32,7 +33,7 @@ SCHEMAS = {
                      "float rate, bool backward=False) -> Tensor",
 }
 ENTRIES = ["gl_ola_nola", "gl_frame_window", "dropout_mask", "dropout_apply", "dropout_grad",
-           "conv1x3_instnorm_lrelu"]
+           "conv1x3_instnorm_lrelu", "relayout"]
 
 
 def _glue_inputs(nf, seed):
@@ -116,7 +117,7 @@ def test_launch_counters_count_cpu_calls_apart_from_cuda_launches():
     entry's both."""
     ops = kernels.ops()
     assert list(ops.launch_entries()) == ENTRIES
-    for mod in (gl_glue, dk, fc):
+    for mod in (gl_glue, dk, fc, rl):
         mod.reset_launches()
     frames, window, inv = _glue_inputs(30, 1)
     for _ in range(3):
@@ -124,9 +125,11 @@ def test_launch_counters_count_cpu_calls_apart_from_cuda_launches():
     x = torch.randn(4, 6)
     dk.dropout_apply(x, 1, 0, 0.5)
     dk.dropout_grad(x, 1, 0, 0.5)
-    assert [_library.launch_count(e, "cpu") for e in ENTRIES] == [3, 3, 0, 1, 1, 0]
+    rl.relayout(torch.randn(2, 3, 4), torch.bfloat16, False)
+    assert [_library.launch_count(e, "cpu") for e in ENTRIES] == [3, 3, 0, 1, 1, 0, 1]
     assert gl_glue.LAUNCHES == {"gl_ola_nola": 0, "gl_frame_window": 0}
     assert dict(dk.LAUNCHES) == {"dropout_mask": 0, "dropout_apply": 0, "dropout_grad": 0}
+    assert dict(rl.LAUNCHES) == {"relayout": 0}
     gl_glue.reset_launches()
     assert _library.launch_count("gl_ola_nola", "cpu") == 0
     assert _library.launch_count("dropout_apply", "cpu") == 1
