@@ -128,6 +128,16 @@ scipy and the standard library. Phases, each reported on its own lines:
      by slope (12 steps minus 2, over 10), losses finite and falling over
      the timed steps, no launch of any hand-written kernel, and a profile
      of 3 steps;
+  16b. Spectrogram Diffusion (``sdiff_phase``): K2 bit for bit against its
+     plain version at the family's shapes, the encoders' attention
+     probabilities (8, 12, 2048, 2048) float32 and bfloat16 and the
+     activations (8, 2048, 768) bfloat16, mask, apply and gradient; then
+     three full-width steps (409.7M parameters, batch 8, 2048 note tokens,
+     256 + 256 frames) traced: finite losses, 150 + 150 K2 launches a step,
+     the spans ``sdiff.notes_encoder``, ``sdiff.context_encoder``,
+     ``sdiff.decoder`` and 48 ``sdiff.attention`` inside ``train.forward``,
+     the counters ``notes_tokens`` and ``notes_positions`` on ``train.step``,
+     the memory peak;
   17. deployment programs (``compat/program_export.py``, after phase 16, on
      the phase-4 weights): the forward (T 860, batch 1), Griffin-Lim (860
      frames, 300 iterations) and serving (8 tiles, 30 s of timbre audio)
@@ -1607,6 +1617,103 @@ def autoencoder_phase(torch, dk, glue, fc, binf):
     print(binf.metric_line("autoencoder_spectral_step_ms", r["ms"], "ms", cuda, n_bins=bt.AE_BINS,
                            width=bt.AE_WIDTH, batch=bt.AE_BATCH, t=bt.AE_T, params=r["params"],
                            dtype="bfloat16"))
+
+
+# ---- phase 16b: Spectrogram Diffusion ---------------------------------------------
+
+SDIFF_K2_SHAPES = (((8, 12, 2048, 2048), "float32"), ((8, 12, 2048, 2048), "bfloat16"),
+                   ((8, 2048, 768), "bfloat16"))
+SDIFF_BATCH = 8
+
+
+def sdiff_phase(torch, dk):
+    """Phase 16b: K2 at the family's shapes bit for bit, then traced full-
+    width steps with their spans, counters and launches."""
+    from ml_music_style_transfer_tpu_torch.midi import Note, events
+    from ml_music_style_transfer_tpu_torch.models import spectrogram_diffusion as sd
+    from ml_music_style_transfer_tpu_torch.utils import profiling
+
+    seed, rate = DROPOUT_SEED, 0.1
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for ci, (shape, name) in enumerate(SDIFF_K2_SHAPES):
+        dtype = getattr(torch, name)
+        x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
+        m = dk.dropout_mask(seed, ci, shape, rate, dtype)
+        same = torch.equal(m, dk.dropout_mask_reference(seed, ci, shape, rate, dtype, "cuda"))
+        y = dk.dropout(x, seed, ci, rate)
+        same = same and torch.equal(y, x.detach() * m)
+        g = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        y.backward(g)
+        same = same and torch.equal(x.grad, g * m)
+        kept = float((m != 0).float().mean())
+        print(f"sdiff: K2 {shape} {name} call {ci}: mask, apply and gradient bit-equal={same} "
+              f"kept={kept:.6f}")
+        check(same, f"K2 differs from its plain version at {shape} {name}")
+        check(abs(kept - (1.0 - rate)) < 1e-3, f"K2 keep fraction {kept} at {shape}")
+        del x, m, y, g
+    torch.cuda.empty_cache()
+
+    cfg = sd.SpectrogramDiffusionConfig()
+    rng = np.random.default_rng(16)
+    seg = cfg.targets_length * cfg.hop / cfg.sr
+    tokens = []
+    for n in (32, 48, 64, 64, 80, 96, 128, 400):
+        on = rng.uniform(-0.5, seg, n)
+        tokens.append(events.encode_segment(
+            [Note(int(p), 100, float(s), float(s + d)) for p, s, d in
+             zip(rng.integers(21, 109, n), on, rng.uniform(0.05, 1.0, n))], 0.0, seg,
+            cfg.max_length))
+    tokens = torch.from_numpy(np.stack(tokens))
+    audio = 0.1 * torch.randn((SDIFF_BATCH, 2, (cfg.targets_length - 1) * cfg.hop),
+                              device="cuda", generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    model = sd.SpectrogramDiffusion(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = sd.make_spectrogram_diffusion_train_step(model)
+    losses = [float(trainer.step(tokens, audio, 1000 + i)) for i in range(2)]
+    torch.cuda.synchronize()
+    dk.reset_launches()
+    profiling.clear_spans()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        losses += [float(trainer.step(tokens, audio, 1002 + i)) for i in range(3)]
+    step_s = (time.perf_counter() - t0) / 3
+    spans = profiling.spans()
+    profiling.clear_spans()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(dk.LAUNCHES)
+    steps = [r for r in spans if r.name == "train.step"]
+    names = {r.name for r in spans}
+    per_step = {n: sum(1 for r in spans if r.name == n) / max(len(steps), 1)
+                for n in ("sdiff.attention", "sdiff.notes_encoder", "sdiff.context_encoder",
+                          "sdiff.decoder", "train.forward")}
+    ms = {n: statistics.median(1e3 * r.device_s for r in spans if r.name == n and r.device_s)
+          for n in ("train.step", "train.forward", "train.backward", "sdiff.notes_encoder",
+                    "sdiff.decoder")}
+    attn_ms = sum(1e3 * r.device_s for r in spans if r.name == "sdiff.attention") / len(steps)
+    counters = steps[-1].counters if steps else {}
+    real = int(torch.count_nonzero(tokens))
+    print(f"sdiff: SpectrogramDiffusion params={n_params}, batch {SDIFF_BATCH}, "
+          f"{cfg.max_length} note tokens ({real} real), bf16: losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; traced step {step_s:.4f} s, device ms "
+          f"{ {k: round(v, 2) for k, v in ms.items()} }, attention {attn_ms:.2f} ms a step; "
+          f"K2 launches in 3 steps {launches}; spans a step {per_step}; counters {counters}; "
+          f"max_memory_allocated_GB={peak / 1e9:.3f}")
+    check(n_params == 409_699_584, f"sdiff: {n_params} parameters")
+    check(bool(np.isfinite(losses).all()), "sdiff: loss not finite")
+    check(launches.get("dropout_apply") == 450 and launches.get("dropout_grad") == 450,
+          f"sdiff: K2 launches {launches}, want 150 + 150 a step")
+    check(len(steps) == 3 and per_step["sdiff.attention"] == 48
+          and all(per_step[n] == 1 for n in ("sdiff.notes_encoder", "sdiff.context_encoder",
+                                             "sdiff.decoder", "train.forward")),
+          f"sdiff: spans a step {per_step}")
+    check({"train.input", "train.loss", "train.backward", "train.optimizer"} <= names,
+          f"sdiff: spans {sorted(names)}")
+    check(counters.get("notes_tokens") == real
+          and counters.get("notes_positions") == tokens.numel(), f"sdiff: counters {counters}")
+    del model, trainer, audio
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---- phase 17: deployment programs (torch.export) ------------------------------
@@ -3874,6 +3981,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     timed("16 (autoencoder)", autoencoder_phase, torch, dk, glue, fc, binf)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("16b (Spectrogram Diffusion)", sdiff_phase, torch, dk)
     print("fused conv kernel launches on the serving, training, data, options and autoencoder "
           "paths: 0 (the model keeps cuDNN's conv, as the JAX model keeps XLA's)")
     for phase in ("17 (export)", "18 (support code)", "19 (soak)"):

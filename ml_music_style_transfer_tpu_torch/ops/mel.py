@@ -3,7 +3,8 @@
 The filterbank and the DCT-II matrix are constants built once on the host
 (NumPy, float64, then float32) and uploaded once per device, so a training
 step's spectral loss copies nothing to the card; applying either is one
-matmul.
+matmul. ``log_mel_frames`` is the log-magnitude mel feature of Spectrogram
+Diffusion (16 kHz, hop 320: 50 frames a second, 128 bands from 20 Hz).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from . import reference as npref
+from . import stft as tstft
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,6 +45,18 @@ def melspectrogram_from_power(power_spec: torch.Tensor, sr: int = 44100, n_fft: 
     fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, power_spec.device)
     dt = torch.promote_types(power_spec.dtype, torch.float32)
     return torch.matmul(fb.to(dt), power_spec.to(dt))
+
+
+def log_mel_frames(audio: torch.Tensor, sr: int = 16000, n_fft: int = 2048, hop: int = 320,
+                   n_mels: int = 128, fmin: float = 20.0, fmax: float | None = None,
+                   floor: float = 1e-5) -> torch.Tensor:
+    """(..., samples) float32 audio -> (..., frames, n_mels) float32
+    ``log(max(mel(|STFT|), floor))``: the centred (reflect) STFT of
+    ``ops/stft.py``, its magnitude, the Slaney mel bank, the natural log.
+    81,600 samples give 256 frames at hop 320."""
+    mag = tstft.stft(audio.float(), n_fft=n_fft, hop_length=hop).abs()
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin, fmax, audio.device)
+    return torch.log(torch.clamp(torch.matmul(mag.transpose(-1, -2), fb.t()), min=floor))
 
 
 @functools.lru_cache(maxsize=None)

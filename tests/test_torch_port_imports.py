@@ -55,7 +55,8 @@ def test_scan_covers_the_package_and_the_smoke_script():
                 "compat/program_export.py", "scripts/export_program.py",
                 "scripts/export_torch_checkpoint.py", "scripts/soak_daemon.py",
                 "testing/plot_spec.py", "scripts/bench_preprocess.py", "scripts/bench_dft_gl.py",
-                "scripts/bench_gl_kernels.py", "scripts/real_data_check.py"):
+                "scripts/bench_gl_kernels.py", "scripts/real_data_check.py",
+                "models/spectrogram_diffusion.py", "midi/events.py"):
         assert f"{PKG}/{new}" in rel
 
 
